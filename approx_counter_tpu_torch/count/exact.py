@@ -1,0 +1,85 @@
+"""Exact k-mer counting and top-N candidate selection.
+
+Port of ``exact_count_select_rows(transposed=True)``
+(``approx_counter_tpu/count/exact.py``).  Replaces the reference's
+sliding-window hash-map count and sorted selection (``count_kmers``
+approx_counter.cpp:487-519, ``get_most_frequent`` :396-405) with torch ops:
+
+  1. pack every window position's k-mer into an int64 code in one sweep
+     over the text rows, tracking N and pad as masks;
+  2. sort the valid codes and run-length count them
+     (``unique_consecutive``);
+  3. drop low-complexity (DUST) and forbidden codes among the unique ones
+     (the filters depend only on the code);
+  4. rank the survivors in CompareCount order and keep the first ``limit``.
+
+Everything is a sort or a sum over positions, so the result does not depend
+on the window order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from approx_counter_tpu_torch.core.complexity import dimer_sum
+from approx_counter_tpu_torch.core.ordering import compare_count_order
+
+
+def exact_count_select(
+    windows_t: torch.Tensor,   # uint8 [m, n]: text-major window batch
+    row_mask: torch.Tensor,    # bool [n]: which windows are real
+    k: int,
+    lc_sum_thr: int,           # integer dimer-sum threshold (lc_sum_threshold)
+    forbidden: torch.Tensor,   # int64 [F] codes (F may be 0)
+    limit: int,
+) -> dict:
+    """Top-``limit`` k-mers by CompareCount among those that pass the
+    filters.  Returns ``sel_codes`` (int64) and ``sel_counts`` (int64) of
+    length ``n_keep``, plus the ints ``n_unique``, ``n_pass``, ``n_keep``
+    and ``had_n``."""
+    if not 2 <= k <= 16:
+        raise ValueError(f"exact_count_select takes 2 <= k <= 16, got {k}")
+    m, n = windows_t.shape
+    p = m - k + 1  # sliding positions per window (ref :496)
+
+    # --- 1. packing sweep over the text rows --------------------------------
+    code = torch.zeros((p, n), dtype=torch.int64, device=windows_t.device)
+    has_n = torch.zeros((p, n), dtype=torch.bool, device=windows_t.device)
+    has_pad = torch.zeros_like(has_n)
+    for j in range(k):
+        sym = windows_t[j:j + p]
+        has_n |= sym == 4
+        has_pad |= sym >= 5
+        code = (code << 2) | (sym & 3)
+    row_valid = row_mask[None, :]
+    # N-containing k-mers in real windows (ref had_n tally :513-517);
+    # positions touching padding are not real sliding positions.
+    had_n = int((has_n & ~has_pad & row_valid).sum())
+    valid = ~(has_n | has_pad) & row_valid
+
+    # --- 2. sort + run-length count -----------------------------------------
+    codes, counts = torch.unique_consecutive(
+        torch.sort(code[valid]).values, return_counts=True
+    )
+    n_unique = codes.numel()
+
+    # --- 3. filters on unique entries ---------------------------------------
+    # haveLowComplexity: score >= threshold -> reject (integer-sum compare;
+    # the k == 2 quirk arrives as an unreachable threshold)
+    keep = dimer_sum(codes, k) < lc_sum_thr
+    if forbidden.numel():
+        keep &= ~torch.isin(codes, forbidden)
+    codes, counts = codes[keep], counts[keep]
+    n_pass = codes.numel()
+
+    # --- 4. CompareCount top-limit ------------------------------------------
+    n_keep = min(n_pass, limit)
+    order = compare_count_order(codes, counts, k)[:n_keep]
+    return dict(
+        sel_codes=codes[order],
+        sel_counts=counts[order],
+        n_unique=n_unique,
+        n_pass=n_pass,
+        n_keep=n_keep,
+        had_n=had_n,
+    )

@@ -1,0 +1,58 @@
+"""The port must run where JAX is not installed.
+
+A subprocess blocks ``jax`` and the JAX package (``sys.modules[name] =
+None`` makes their import fail), imports every module of
+``approx_counter_tpu_torch`` and runs a tiny ``run_pipeline`` on the CPU.
+It guards against an import chain such as the JAX package's
+``io/fastx.py`` -> ``core/__init__.py`` -> ``core/complexity.py`` ->
+``jax.numpy``.
+"""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SCRIPT = textwrap.dedent(r"""
+    import importlib, os, pkgutil, sys
+    sys.modules["jax"] = None
+    sys.modules["approx_counter_tpu"] = None
+    import torch
+    torch.set_num_threads(1)
+    import approx_counter_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    from approx_counter_tpu_torch.params import Params
+    from approx_counter_tpu_torch.pipeline import run_pipeline
+    tmp = sys.argv[1]
+    with open(os.path.join(tmp, "r.fasta"), "w") as f:
+        for i in range(6):
+            f.write(f">r{i}\n" + "ACGTTGCA" * 8 + "\n")
+    prm = Params(input_file=os.path.join(tmp, "r.fasta"),
+                 output=os.path.join(tmp, "o"), k=5, sl=20, sn=6, limit=4,
+                 v=0, seed=1)
+    assert run_pipeline(prm, device="cpu") == 0
+    assert os.path.getsize(os.path.join(tmp, "o_0.start")) > 0
+    leaked = [m for m in sys.modules
+              if m.startswith(("jax.", "approx_counter_tpu."))]
+    assert sys.modules["jax"] is None, "jax was imported"
+    assert sys.modules["approx_counter_tpu"] is None, "JAX package imported"
+    assert not leaked, leaked
+    print("imported", len(names))
+""")
+
+
+def test_port_imports_and_runs_without_jax(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parents[1],
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20
