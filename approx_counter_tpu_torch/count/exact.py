@@ -37,12 +37,15 @@ def exact_count_select(
     filters.  Returns ``sel_codes`` (int64) and ``sel_counts`` (int64) of
     length ``n_keep``, plus the ints ``n_unique``, ``n_pass``, ``n_keep``
     and ``had_n``."""
-    if not 2 <= k <= 16:
-        raise ValueError(f"exact_count_select takes 2 <= k <= 16, got {k}")
+    if not 2 <= k <= 32:
+        raise ValueError(f"exact_count_select takes 2 <= k <= 32, got {k}")
     m, n = windows_t.shape
     p = m - k + 1  # sliding positions per window (ref :496)
 
     # --- 1. packing sweep over the text rows --------------------------------
+    # At k = 32 the last shift moves the first base into bits 62-63: the
+    # int64 shift wraps like the uint64 one, so the code holds the uint64
+    # bits (negative as int64 when the first base is G or T).
     code = torch.zeros((p, n), dtype=torch.int64, device=windows_t.device)
     has_n = torch.zeros((p, n), dtype=torch.bool, device=windows_t.device)
     has_pad = torch.zeros_like(has_n)

@@ -1,0 +1,152 @@
+"""On-card differential check of the port: every kernel family against the
+plain Myers scan, and the exact stage and the whole pass against the oracle.
+
+    python -m approx_counter_tpu_torch.gpu_check
+
+Port of the JAX package's ``native/tpu_check.py`` for the parts whose
+modules the port has.  The CPU tests reach only the plain versions; this
+check runs the CUDA kernels themselves, on the card, in one process.
+Checks:
+
+  * kernel families: the sliced level NFA (``approx_counts``), unpacked
+    Myers, packed Myers at pack 2 and 4 and the packed level NFA at pack 1,
+    2, 4, 8 and 16 (wherever k <= 32 / pack), each against
+    ``approx_counts_ref`` over k in {2, 8, 16, 31, 32} x maxerr 0-3, on
+    C=64 candidates and W=512 windows of m=40 symbols 0-5 (N and pad
+    included) with 17 invalid tail windows;
+  * the exact stage (k=8, 256 windows, limit 32) against
+    ``oracle_count_kmers`` / ``oracle_get_most_frequent``;
+  * ``Engine.count_one_end`` at k=8 and k=17 against the oracle pipeline:
+    the exact selection, the re-ranked approximate counts and ``had_n``.
+
+Every count is an integer and every comparison exact.  Prints one row per
+check, then ``GPU-CHECK PASS`` or ``GPU-CHECK FAIL (n)``; exits 1 on any
+failure or when no CUDA device is present.  Writes no file.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from approx_counter_tpu_torch.core.codec import BASE_N, BASE_PAD
+from approx_counter_tpu_torch.core.complexity import (
+    adjust_threshold,
+    lc_sum_threshold,
+)
+from approx_counter_tpu_torch.count.exact import exact_count_select
+from approx_counter_tpu_torch.kernels.bpm import (
+    approx_counts,
+    approx_counts_myers,
+    approx_counts_packed,
+    approx_counts_ref,
+    build_peq,
+)
+from approx_counter_tpu_torch.oracle import (
+    oracle_count_kmers,
+    oracle_error_count,
+    oracle_get_most_frequent,
+    oracle_sort_compare_count,
+)
+from approx_counter_tpu_torch.params import Params
+from approx_counter_tpu_torch.pipeline import Engine
+
+KS = (2, 8, 16, 31, 32)
+
+
+def _kernel_rows(rng, device) -> list[tuple[str, bool]]:
+    C, W, m = 64, 512, 40
+    rows = []
+    for k in KS:
+        for maxerr in range(4):
+            codes = rng.integers(0, 1 << min(2 * k, 63), C, dtype=np.uint64)
+            peq = build_peq(torch.from_numpy(codes.view(np.int64)).to(device), k)
+            wins = torch.from_numpy(
+                rng.integers(0, 6, (m, W)).astype(np.uint8)).to(device)
+            valid = torch.ones(W, dtype=torch.bool, device=device)
+            valid[-17:] = False
+            args = (peq, wins, valid, k, maxerr)
+            want = approx_counts_ref(*args)
+            runs = [("sliced", lambda: approx_counts(*args)),
+                    ("myers", lambda: approx_counts_myers(*args))]
+            runs += [(f"myers-p{p}", lambda p=p: approx_counts_packed(
+                *args, pack=p, algo="myers")) for p in (2, 4) if k <= 32 // p]
+            runs += [(f"nfa-p{p}", lambda p=p: approx_counts_packed(
+                *args, pack=p, algo="nfa"))
+                for p in (1, 2, 4, 8, 16) if k <= 32 // p]
+            for name, fn in runs:
+                rows.append((f"k={k:2d} maxerr={maxerr} {name:9s}",
+                             torch.equal(fn(), want)))
+    return rows
+
+
+def _exact_stage_row(rng, device) -> tuple[str, bool]:
+    k, n, m, limit = 8, 256, 45, 32
+    wins = rng.integers(0, 4, (n, m)).astype(np.uint8)
+    wins[1] = wins[0]  # counts > 1 above the count-1 tie class
+    out = exact_count_select(
+        torch.from_numpy(np.ascontiguousarray(wins.T)).to(device),
+        torch.ones(n, dtype=torch.bool, device=device), k,
+        lc_sum_threshold(100.0, k),
+        torch.zeros(0, dtype=torch.int64, device=device), limit,
+    )
+    got = list(zip(out["sel_codes"].cpu().numpy().view(np.uint64).tolist(),
+                   out["sel_counts"].cpu().tolist()))
+    counter, _ = oracle_count_kmers(list(wins), k, 100.0, set())
+    return ("exact stage k= 8 vs oracle",
+            got == oracle_get_most_frequent(counter, limit, k))
+
+
+def _pass_rows(rng, device) -> list[tuple[str, bool]]:
+    rows = []
+    for k, sl, n, n_valid, limit in ((8, 24, 128, 121, 37),
+                                     (17, 20, 64, 59, 21)):
+        wins = np.full((n, sl + 1), BASE_PAD, np.uint8)
+        wins[:n_valid, :sl] = rng.integers(0, 4, (n_valid, sl))
+        wins[2] = wins[1]  # count-2 class
+        wins[3] = wins[1]  # count-3 class member
+        for _ in range(23):  # Ns inside the valid region
+            wins[rng.integers(0, n_valid), rng.integers(0, sl)] = BASE_N
+
+        texts = [wins[i, :sl] for i in range(n_valid)]
+        counter, had_n = oracle_count_kmers(
+            texts, k, adjust_threshold(1.0, 16, k), set())
+        sel = oracle_get_most_frequent(counter, limit, k)
+        ranked = oracle_sort_compare_count(
+            oracle_error_count(texts, [c for c, _ in sel], k), k)[:limit]
+
+        engine = Engine(Params(k=k, sl=sl, limit=limit, param_lc=1.0), device)
+        (ec, ecnt), (ac, acnt), stats = engine.count_one_end(wins, n_valid)
+        ok = (list(zip(ec.tolist(), ecnt.tolist())) == sel
+              and list(zip(ac.tolist(), acnt.tolist())) == ranked
+              and stats["had_n"] == had_n)
+        rows.append((f"whole pass k={k:2d} vs oracle", ok))
+    return rows
+
+
+def run(device=torch.device("cuda")) -> list[tuple[str, bool]]:
+    """One (name, ok) row per check, on ``device``."""
+    device = torch.device(device)
+    rng = np.random.default_rng(99)
+    rows = _kernel_rows(rng, device)
+    rows.append(_exact_stage_row(rng, device))
+    rows += _pass_rows(rng, device)
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("gpu_check: no CUDA device", file=sys.stderr)
+        return 1
+    rows = run()
+    for name, ok in rows:
+        print(f"{name}: {'OK' if ok else 'FAIL'}")
+    fails = sum(not ok for _, ok in rows)
+    print("GPU-CHECK " + ("PASS" if not fails else f"FAIL ({fails})"))
+    return 1 if fails else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

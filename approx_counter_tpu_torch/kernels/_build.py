@@ -2,11 +2,13 @@
 
 Each kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The level NFA is built once per (k, maxerr) with ``-DKMER`` and
-``-DMAXERR``.  Libraries go to ``build/torch_kernels/`` beside the package,
-named by a hash of the source and the flags, so a changed source rebuilds
-and an unchanged one is reused.  A missing ``nvcc`` or a failed build
-raises: there is no fallback.
+seconds).  The sliced level NFA is built once per (k, maxerr) with
+``-DKMER`` and ``-DMAXERR``; the other kernels take k, maxerr and the pack
+width as arguments and are built once each.  Libraries go to
+``build/torch_kernels/`` beside the package, named by a hash of the source,
+the headers of ``csrc/`` and the flags, so a changed source rebuilds and an
+unchanged one is reused.  A missing ``nvcc`` or a failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -30,12 +32,25 @@ NVCC_FLAGS = (
 )
 
 
-class KernelBuild:
-    """One built library: the ctypes handle, nvcc's output (ptxas register
-    and spill report) and the build's wall seconds (0.0 when reused)."""
+# argtypes of each library's C entry, which has the library's name: the
+# tensors' pointers, then ints, then the CUDA stream.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "nfa_sliced": [_P] * 5 + [_I] * 3 + [_P],   # p0 p1 win valid out | words m W
+    "bpm_myers": [_P] * 4 + [_I] * 5 + [_P],    # peq win valid out | C m W k e
+    "bpm_packed": [_P] * 4 + [_I] * 6 + [_P],   # words win valid out | n m W k e pack
+    "nfa_packed": [_P] * 4 + [_I] * 6 + [_P],
+}
 
-    def __init__(self, lib: ctypes.CDLL, log: str, seconds: float):
+
+class KernelBuild:
+    """One built library: the ctypes handle, its path, nvcc's output
+    (ptxas register and spill report) and the build's wall seconds (0.0
+    when reused)."""
+
+    def __init__(self, lib: ctypes.CDLL, so: Path, log: str, seconds: float):
         self.lib = lib
+        self.so = so
         self.log = log
         self.seconds = seconds
 
@@ -57,8 +72,9 @@ def _nvcc() -> str:
 
 def _compile(src: Path, defines: tuple[str, ...], stem: str) -> tuple[Path, str, float]:
     flags = NVCC_FLAGS + defines
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()
+        src.read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     so = BUILD_DIR / f"{stem}_{digest}.so"
     log_path = so.with_suffix(".log")
@@ -89,26 +105,26 @@ def _compile(src: Path, defines: tuple[str, ...], stem: str) -> tuple[Path, str,
     return so, log, seconds
 
 
-def nfa_sliced_build(k: int, maxerr: int) -> KernelBuild:
-    """The level-NFA library for (k, maxerr), built on first use."""
-    if not (2 <= k <= 32 and 0 <= maxerr <= 3):
-        raise ValueError(f"no nfa_sliced kernel for k={k}, maxerr={maxerr}")
-    key = ("nfa_sliced", k, maxerr)
+def kernel_build(name: str, defines: tuple[str, ...] = ()) -> KernelBuild:
+    """The library of ``csrc/<name>.cu`` built with ``defines``, built on
+    first use (once per process and argument set, also across threads)."""
+    key = (name, defines)
     with _locks_guard:
         lock = _locks.setdefault(key, threading.Lock())
     with lock:
         if key not in _builds:
-            so, log, seconds = _compile(
-                SRC_DIR / "nfa_sliced.cu",
-                (f"-DKMER={k}", f"-DMAXERR={maxerr}"),
-                f"nfa_sliced_k{k}_e{maxerr}",
-            )
+            stem = "_".join([name, *(d.split("=")[-1] for d in defines)])
+            so, log, seconds = _compile(SRC_DIR / f"{name}.cu", defines, stem)
             lib = ctypes.CDLL(str(so))
-            lib.nfa_sliced.restype = ctypes.c_int
-            lib.nfa_sliced.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            _builds[key] = KernelBuild(lib, log, seconds)
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = SIGNATURES[name]
+            _builds[key] = KernelBuild(lib, so, log, seconds)
         return _builds[key]
+
+
+def nfa_sliced_build(k: int, maxerr: int) -> KernelBuild:
+    """The sliced level-NFA library for (k, maxerr), built on first use."""
+    if not (2 <= k <= 32 and 0 <= maxerr <= 3):
+        raise ValueError(f"no nfa_sliced kernel for k={k}, maxerr={maxerr}")
+    return kernel_build("nfa_sliced", (f"-DKMER={k}", f"-DMAXERR={maxerr}"))

@@ -9,17 +9,30 @@ where d_min is the least edit distance between c and any substring of w
 (the reference's per-error-level counting, approx_counter.cpp:531-601).
 Window symbols >= 4 (N, pad) match no candidate base.
 
-Two implementations of that function live here:
+Four CUDA kernels compute that function, each behind its own wrapper:
 
-  * ``approx_counts_ref`` -- the plain torch version: Myers' 1999
-    bit-vector DP, one 32-bit word per (candidate, window), a twin of the
-    JAX package's ``approx_counts_jnp``.  The CPU path and the oracle for
-    the kernel.
-  * the CUDA kernel ``csrc/nfa_sliced.cu`` -- the candidate-bit-sliced
-    level NFA that replaces the Pallas kernel ``_nfa_kernel_sliced``.
+  * ``approx_counts`` -> ``csrc/nfa_sliced.cu``, the candidate-bit-sliced
+    level NFA that replaces the Pallas kernel ``_nfa_kernel_sliced``.  The
+    CLI's kernel at every k and maxerr, as in the JAX package's dispatch.
+  * ``approx_counts_myers`` -> ``csrc/bpm_myers.cu``, unpacked Myers
+    (replaces ``_bpm_kernel``).
+  * ``approx_counts_packed(algo="myers")`` -> ``csrc/bpm_packed.cu``, SWAR
+    Myers with 2 or 4 candidates per word (replaces ``_bpm_kernel_packed``).
+  * ``approx_counts_packed(algo="nfa")`` -> ``csrc/nfa_packed.cu``, the
+    SWAR level NFA with 1-16 candidates per word (replaces
+    ``_nfa_kernel_packed``).
 
-``approx_counts`` dispatches on the tensors' device: the plain version for
-CPU tensors, the kernel for CUDA tensors, and nothing else.
+The last three are differential alternates: ``gpu_check`` holds them
+against the plain versions on the card.  The plain versions:
+
+  * ``approx_counts_ref`` -- Myers' 1999 bit-vector DP, one 32-bit word per
+    (candidate, window), a twin of the JAX package's ``approx_counts_jnp``.
+    The plain version of the sliced and the unpacked Myers kernels.
+  * ``approx_counts_packed_ref`` -- the SWAR Myers and SWAR level NFA step
+    for step, the plain version of the two packed kernels.
+
+Each wrapper dispatches on the tensors' device: the plain version for CPU
+tensors, the kernel for CUDA tensors, and nothing else.
 
 Candidate bit-vectors are int64 tensors holding uint32 values (torch's
 uint32 lacks shifts and arithmetic on the CPU); the Myers scan masks to 32
@@ -105,6 +118,112 @@ def approx_counts_ref(peq: torch.Tensor, windows_t: torch.Tensor,
     return contrib.sum(dim=1).to(torch.int32)
 
 
+def interleave_peq(peq: torch.Tensor, pack: int) -> torch.Tensor:
+    """[C, 4] peq -> [ceil(C / pack), 4] SWAR words, int64 holding uint32.
+
+    Word i holds candidates pack*i ... pack*i + pack - 1; candidate
+    pack*i + f sits in the bits [fw*f, fw*f + fw), fw = 32 // pack.  C is
+    padded to a multiple of ``pack`` with zero rows (poly-A candidates whose
+    counts the callers slice off).
+    """
+    C = peq.shape[0]
+    c_pad = -(-C // pack) * pack
+    if c_pad != C:
+        peq = torch.cat([peq, peq.new_zeros((c_pad - C, 4))])
+    shift = (32 // pack) * torch.arange(pack, device=peq.device)
+    return (peq.reshape(c_pad // pack, pack, 4) << shift[None, :, None]).sum(dim=1)
+
+
+def _check_packed(k: int, pack: int, algo: str) -> None:
+    # Myers needs a guard bit per field, shown right for 2 and 4 fields;
+    # the NFA has no carries and packs down to 2-bit fields.
+    packs = {"myers": (2, 4), "nfa": (1, 2, 4, 8, 16)}
+    if algo not in packs or pack not in packs[algo] or k > 32 // pack:
+        raise ValueError(f"no packed {algo!r} kernel for pack={pack}, k={k}: "
+                         f"myers takes pack 2 or 4, nfa 1, 2, 4, 8 or 16, "
+                         f"and k <= 32 // pack")
+
+
+def approx_counts_packed_ref(peq: torch.Tensor, windows_t: torch.Tensor,
+                             window_valid: torch.Tensor, k: int,
+                             maxerr: int = MAXERR, pack: int = 2,
+                             algo: str = "myers") -> torch.Tensor:
+    """Plain torch version of the two SWAR kernels, step for step as the
+    JAX package's ``_bpm_kernel_packed`` / ``_nfa_kernel_packed``: ``pack``
+    candidates per 32-bit word (``interleave_peq``), int64 masked to 32
+    bits.  Same arguments and result as ``approx_counts_ref``.
+
+    ``algo="myers"``: Myers' DP with a per-field add that drops the carry
+    out of each field, a ``LEAK`` mask after each left shift, one packed
+    score (each field's +-1 at its bit 0) and a per-field running minimum.
+    ``algo="nfa"``: the level NFA R_0..R_maxerr with no leak masks (every
+    bit a shift carries into the next field lands on a bit the recurrence
+    forces) and ``| ONES`` on level 1 only; ``h`` ORs each level's states
+    from the initial state on, and a window adds the levels whose bit k-1
+    was ever set.
+    """
+    _check_packed(k, pack, algo)
+    C = peq.shape[0]
+    m, W = windows_t.shape
+    dev = peq.device
+    fw = 32 // pack
+    ones = sum(1 << (fw * f) for f in range(pack))
+    fmask = (1 << fw) - 1
+    words = interleave_peq(peq, pack)
+    n_words = words.shape[0]
+    mask0 = (words[:, 1] | words[:, 3])[:, None]   # pattern bases with bit 0
+    mask1 = (words[:, 2] | words[:, 3])[:, None]   # pattern bases with bit 1
+
+    def full(value):
+        return torch.full((n_words, W), value, dtype=torch.int64, device=dev)
+
+    def eq_row(j):
+        c = windows_t[j].to(torch.int64)[None, :]
+        x0 = ((c & 1) - 1) & _M32          # all ones iff text bit 0 == 0
+        x1 = (((c >> 1) & 1) - 1) & _M32   # all ones iff text bit 1 == 0
+        vm = ((c - 4) >> 63) & _M32        # N and pad match nothing
+        return (mask0 ^ x0) & (mask1 ^ x1) & vm
+
+    if algo == "myers":
+        H = ones << (fw - 1)               # top bit of each field
+        NH, LEAK = H ^ _M32, ones ^ _M32
+        VP, VN, score = full(_M32), full(0), full(k * ones)
+        mins = [full(k) for _ in range(pack)]
+        for j in range(m):
+            Eq = eq_row(j)
+            Xv = Eq | VN
+            a = Eq & VP
+            add = ((a & NH) + (VP & NH)) ^ ((a ^ VP) & H)
+            Xh = (add ^ VP) | Eq
+            Ph = VN | (~(Xh | VP) & _M32)
+            Mh = VP & Xh
+            score += ((Ph >> (k - 1)) & ones) - ((Mh >> (k - 1)) & ones)
+            for f, mn in enumerate(mins):
+                torch.minimum(mn, (score >> (fw * f)) & fmask, out=mn)
+            Ph = (Ph << 1) & LEAK
+            Mh = (Mh << 1) & LEAK
+            VP = Mh | (~(Xv | Ph) & _M32)
+            VN = Ph & Xv
+        hits = [(maxerr + 1 - mn).clamp_(min=0) for mn in mins]
+    else:
+        # R_d(0) bit i = [i < d], cut to the field width (pack 8 and 16)
+        R = [full(((((1 << d) - 1) & fmask) * ones) & _M32)
+             for d in range(maxerr + 1)]
+        h = [r.clone() for r in R]
+        for j in range(m):
+            Eq = eq_row(j)
+            S = [(r << 1) & _M32 for r in R]
+            Rn = [(S[0] | ones) & Eq]
+            for d in range(1, maxerr + 1):
+                nxt = (S[d] & Eq) | R[d - 1] | S[d - 1] | ((Rn[d - 1] << 1) & _M32)
+                Rn.append(nxt | ones if d == 1 else nxt)
+            R = Rn
+            h = [hh | rr for hh, rr in zip(h, R)]
+        hits = [sum((hd >> (fw * f + k - 1)) & 1 for hd in h) for f in range(pack)]
+    counts = torch.stack([(x * window_valid[None, :]).sum(dim=1) for x in hits], 1)
+    return counts.reshape(n_words * pack)[:C].to(torch.int32)
+
+
 def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 holding uint32 values -> int32 with the same 32 bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
@@ -129,42 +248,127 @@ def _check_inputs(peq, windows_t, window_valid, k, maxerr):
         raise ValueError("peq, windows_t and window_valid must share a device")
 
 
+def _on_cpu(t: torch.Tensor, fn: str) -> bool:
+    """True for a CPU tensor (plain version); False for a CUDA tensor
+    (kernel); anything else raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cpu or cuda, not {t.device}")
+    return t.device.type == "cpu"
+
+
+def _launch(fn, tensors, ints) -> None:
+    """Call the C entry ``fn`` of a kernel library on the tensors' device
+    and current stream; a nonzero CUDA error raises."""
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        rc = fn(*(t.data_ptr() for t in tensors), *ints,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
+
+
 def approx_counts(peq: torch.Tensor, windows_t: torch.Tensor,
                   window_valid: torch.Tensor, k: int,
                   maxerr: int = MAXERR) -> torch.Tensor:
-    """int32 [C] approximate counts: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  ``approx_counts.launches`` counts the
-    kernel launches."""
+    """int32 [C] approximate counts: the sliced level NFA
+    (``csrc/nfa_sliced.cu``) for CUDA tensors, the plain version for CPU
+    tensors.  ``approx_counts.launches`` counts the kernel launches."""
     _check_inputs(peq, windows_t, window_valid, k, maxerr)
     C = peq.shape[0]
     m, W = windows_t.shape
     if C == 0 or W == 0:
         return torch.zeros(C, dtype=torch.int32, device=peq.device)
-    if peq.device.type == "cpu":
+    if _on_cpu(peq, "approx_counts"):
         return approx_counts_ref(peq, windows_t, window_valid, k, maxerr)
-    if peq.device.type != "cuda":
-        raise ValueError(f"approx_counts runs on cpu or cuda, not {peq.device}")
 
     from approx_counter_tpu_torch.kernels._build import nfa_sliced_build
 
     c_pad = -(-C // 32) * 32
     if c_pad != C:  # zero rows decode as poly-A: garbage counts, sliced off
-        peq = torch.cat(
-            [peq, torch.zeros((c_pad - C, 4), dtype=peq.dtype, device=peq.device)]
-        )
+        peq = torch.cat([peq, peq.new_zeros((c_pad - C, 4))])
     p0, p1 = (_as_int32_bits(p).contiguous() for p in build_sliced_planes(peq, k))
     out = torch.zeros(c_pad, dtype=torch.int32, device=peq.device)
-    lib = nfa_sliced_build(k, maxerr).lib
-    with torch.cuda.device(peq.device):
-        rc = lib.nfa_sliced(
-            p0.data_ptr(), p1.data_ptr(), windows_t.data_ptr(),
-            window_valid.data_ptr(), out.data_ptr(), c_pad // 32, m, W,
-            torch.cuda.current_stream(peq.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"nfa_sliced kernel launch failed: CUDA error {rc}")
+    _launch(nfa_sliced_build(k, maxerr).lib.nfa_sliced,
+            (p0, p1, windows_t, window_valid, out), (c_pad // 32, m, W))
     approx_counts.launches += 1
     return out[:C]
 
 
 approx_counts.launches = 0
+
+
+def approx_counts_myers(peq: torch.Tensor, windows_t: torch.Tensor,
+                        window_valid: torch.Tensor, k: int,
+                        maxerr: int = MAXERR) -> torch.Tensor:
+    """int32 [C] approximate counts by unpacked Myers: ``csrc/bpm_myers.cu``
+    for CUDA tensors, ``approx_counts_ref`` for CPU tensors.
+    ``approx_counts_myers.launches`` counts the kernel launches.
+
+    The counterpart of the JAX package's ``approx_counts_pallas``.  Its
+    knobs do not carry over: ``ct``/``wt`` size VMEM tiles of the TPU's
+    sequential grid (a CUDA block here is 256 windows by 8 candidates, and
+    ragged edges are masked in the kernel), ``eqsel`` chose between two TPU
+    vector-unit idioms (the kernel always takes the base-bit select), and
+    ``interpret`` ran the Pallas body on the CPU (the plain version is the
+    CPU path here).
+    """
+    _check_inputs(peq, windows_t, window_valid, k, maxerr)
+    C = peq.shape[0]
+    m, W = windows_t.shape
+    if C == 0 or W == 0:
+        return torch.zeros(C, dtype=torch.int32, device=peq.device)
+    if _on_cpu(peq, "approx_counts_myers"):
+        return approx_counts_ref(peq, windows_t, window_valid, k, maxerr)
+
+    from approx_counter_tpu_torch.kernels._build import kernel_build
+
+    out = torch.zeros(C, dtype=torch.int32, device=peq.device)
+    _launch(kernel_build("bpm_myers").lib.bpm_myers,
+            (_as_int32_bits(peq).contiguous(), windows_t, window_valid, out),
+            (C, m, W, k, maxerr))
+    approx_counts_myers.launches += 1
+    return out
+
+
+approx_counts_myers.launches = 0
+
+
+def approx_counts_packed(peq: torch.Tensor, windows_t: torch.Tensor,
+                         window_valid: torch.Tensor, k: int,
+                         maxerr: int = MAXERR, pack: int = 2,
+                         algo: str = "myers") -> torch.Tensor:
+    """int32 [C] approximate counts by a SWAR kernel, ``pack`` candidates
+    per 32-bit word: ``csrc/bpm_packed.cu`` (``algo="myers"``, pack 2 or 4)
+    or ``csrc/nfa_packed.cu`` (``algo="nfa"``, pack 1, 2, 4, 8 or 16) for
+    CUDA tensors, ``approx_counts_packed_ref`` for CPU tensors.  k must be
+    at most 32 // pack.  ``approx_counts_packed.launches[algo]`` counts each
+    kernel's launches.
+
+    The counterpart of the JAX package's ``approx_counts_pallas_packed``;
+    its ``ct``, ``wt``, ``eqsel`` and ``interpret`` do not carry over, for
+    the reasons given in ``approx_counts_myers``.  C needs no padding: the
+    words are padded here and the pad candidates sliced off.
+    """
+    _check_inputs(peq, windows_t, window_valid, k, maxerr)
+    _check_packed(k, pack, algo)
+    C = peq.shape[0]
+    m, W = windows_t.shape
+    if C == 0 or W == 0:
+        return torch.zeros(C, dtype=torch.int32, device=peq.device)
+    if _on_cpu(peq, "approx_counts_packed"):
+        return approx_counts_packed_ref(peq, windows_t, window_valid, k,
+                                        maxerr, pack, algo)
+
+    from approx_counter_tpu_torch.kernels._build import kernel_build
+
+    words = _as_int32_bits(interleave_peq(peq, pack)).contiguous()
+    out = torch.zeros(words.shape[0] * pack, dtype=torch.int32, device=peq.device)
+    name = "bpm_packed" if algo == "myers" else "nfa_packed"
+    _launch(getattr(kernel_build(name).lib, name),
+            (words, windows_t, window_valid, out),
+            (words.shape[0], m, W, k, maxerr, pack))
+    approx_counts_packed.launches[algo] += 1
+    return out[:C]
+
+
+approx_counts_packed.launches = {"myers": 0, "nfa": 0}

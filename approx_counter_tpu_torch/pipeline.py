@@ -21,9 +21,10 @@ skip_end: the reference's break sits inside ``if(mr_v>0)``
 second pass re-samples the START and exports those counts under ``.end``.
 We implement the intended skip unless ``compat_quirks`` asks for the bug.
 
-The JAX package's ``--stream``, ``--from-exact``, ``--multihost``, solid
-mode (``-sk``), ``--profile`` and k > 16 are not yet ported: they exit 1
-with an error.
+Every k of the reference, 2 to 32, runs: codes are int64 tensors holding
+the uint64 bits.  The JAX package's ``--stream``, ``--from-exact``,
+``--multihost``, solid mode (``-sk``) and ``--profile`` are not yet ported:
+they exit 1 with an error.
 """
 
 from __future__ import annotations
@@ -135,8 +136,6 @@ def unsupported_flag(prm: Params) -> str | None:
         return "-sk"
     if prm.profile_dir:
         return "--profile"
-    if prm.k > 16:
-        return "-k > 16"
     return None
 
 

@@ -29,13 +29,14 @@ from approx_counter_tpu_torch.count.exact import exact_count_select  # noqa: E40
 CAP = 512
 
 
-def _windows(seed, n=64, m=41):
+def _windows(seed, n=64, m=41, pair=(0, 3)):
     """Tie-heavy ``[m, n]`` windows: rows drawn from 6 templates (two of
-    them over A/T only) with a few substitutions, some Ns, two poly-A rows,
-    a trailing pad column on half the rows and 5 all-pad invalid rows."""
+    them over the two bases ``pair`` only, A/T by default) with a few
+    substitutions, some Ns, two poly-A rows, a trailing pad column on half
+    the rows and 5 all-pad invalid rows."""
     rng = np.random.default_rng(seed)
     templates = rng.integers(0, 4, (6, m))
-    templates[:2] = rng.integers(0, 2, (2, m)) * 3  # A/T only: more repeats
+    templates[:2] = np.asarray(pair)[rng.integers(0, 2, (2, m))]  # repeats
     wins = templates[rng.integers(0, 6, n)].astype(np.uint8)
     subs = rng.random((n, m)) < 0.04
     wins[subs] = rng.integers(0, 4, int(subs.sum()))
@@ -66,11 +67,14 @@ def _jax_select(wins_t, row_mask, k, lc_thr, forbidden, limit):
     )
 
 
-@pytest.mark.parametrize("k", [2, 8, 16])
+@pytest.mark.parametrize("k", [2, 8, 16, 17, 24, 31, 32])
 @pytest.mark.parametrize("param_lc", [0.5, 2.0])
 @pytest.mark.parametrize("with_forbidden", [False, True])
 def test_exact_count_select_matches_jax(k, param_lc, with_forbidden):
-    wins_t, row_mask = _windows(10 * k + int(with_forbidden))
+    """k > 16 takes G/T-rich windows: at k = 32 half the codes have bit 63
+    set, negative as int64, and the code tie-break must stay unsigned."""
+    wins_t, row_mask = _windows(10 * k + int(with_forbidden),
+                                pair=(2, 3) if k > 16 else (0, 3))
     lc_thr = lc_sum_threshold(adjust_threshold(param_lc, 16, k), k)
     limit = 40
     forbidden = np.empty(0, np.uint64)
@@ -94,8 +98,10 @@ def test_exact_count_select_matches_jax(k, param_lc, with_forbidden):
         got["sel_counts"].numpy().astype(np.uint64), want["counts"])
 
 
-@pytest.mark.parametrize("k", range(2, 17))
+@pytest.mark.parametrize("k", range(2, 33))
 def test_dimer_sum_matches_numpy(k):
+    """At k = 32 the last dimer spans bits 60-63, read through an
+    arithmetic shift of a negative int64: the & 15 mask keeps it right."""
     rng = np.random.default_rng(k)
     codes = rng.integers(0, 1 << (2 * k), 500, dtype=np.uint64)
     codes[:3] = [0, (1 << (2 * k)) - 1, int("01" * k, 2)]  # poly-A, -T, -C
@@ -104,11 +110,23 @@ def test_dimer_sum_matches_numpy(k):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("k,n", [(2, 12), (8, 40), (16, 40)])
+@pytest.mark.parametrize("k,n", [(2, 12), (8, 40), (16, 40), (17, 40),
+                                 (24, 40), (31, 40), (32, 40)])
 def test_rank_with_zero_counts_matches_jax(k, n):
     rng = np.random.default_rng(n + k)
-    codes = rng.choice(1 << (2 * k), n, replace=False).astype(np.uint64)
-    counts = rng.integers(0, 4, n).astype(np.int32)  # ties and zeros
+    if k <= 16:
+        codes = rng.choice(1 << (2 * k), n, replace=False).astype(np.uint64)
+        counts = rng.integers(0, 4, n).astype(np.int32)  # ties and zeros
+    else:
+        # pairs c, c ^ 0b1010...: bit 1 of every base flipped (A<->G,
+        # C<->T) keeps the dimer histogram's shape, so each pair ties on
+        # count and dimer sum and only the unsigned code order splits it --
+        # at k = 32 one code of each pair has bit 63 set
+        half = rng.integers(0, 1 << (2 * k), n // 2, dtype=np.uint64)
+        flip = np.uint64(int("10" * k, 2))
+        codes = np.concatenate([half, half ^ flip])
+        counts = np.tile(rng.integers(0, 4, n // 2), 2).astype(np.int32)
+        assert len(np.unique(codes)) == n
     counts[:2] = 0
     cap = 64
     hi, lo = split_code(codes)

@@ -76,7 +76,15 @@ def _run_both(tmp_path, capsys, **kw):
     dict(fasta=dict(seed=4, n_reads=40, len_lo=60, len_hi=120),
          prm=dict(k=8, sl=25, sn=30, limit=25, nb_of_runs=2, skip_end=True,
                   compat_quirks=True, v=1, seed=5)),
-], ids=["fixture", "k16_sl100", "n_fk_maxerr1", "mr2_se_quirks"])
+    # two-word codes: k = 17 with Ns and --max-error 3
+    dict(fasta=dict(seed=5, n_reads=80, len_lo=60, len_hi=200, n_frac=0.01),
+         prm=dict(k=17, sl=40, sn=60, limit=40, max_error=3, v=1, seed=8),
+         stderr="sequences with 'N' symbols"),
+    # k = 32: codes starting with G or T have bit 63 set
+    dict(fasta=dict(seed=6, n_reads=60, len_lo=80, len_hi=150),
+         prm=dict(k=32, sl=50, sn=50, limit=30, v=1, seed=9)),
+], ids=["fixture", "k16_sl100", "n_fk_maxerr1", "mr2_se_quirks", "k17_n_maxerr3",
+        "k32"])
 def test_run_pipeline_matches_jax(tmp_path, capsys, cfg):
     _write_fasta(tmp_path / "reads.fasta", **cfg["fasta"])
     prm = dict(cfg["prm"])
@@ -123,7 +131,6 @@ def test_sample_windows_matches_jax(tmp_path, capsys, end):
     (["--multihost"], "--multihost"),
     (["-sk", "3"], "-sk"),
     (["--profile", "trace"], "--profile"),
-    (["-k", "20"], "-k > 16"),
 ])
 def test_flag_outside_the_port_exits_1(tmp_path, capsys, argv, flag):
     from approx_counter_tpu_torch.config.cli import resolve_params
@@ -135,6 +142,37 @@ def test_flag_outside_the_port_exits_1(tmp_path, capsys, argv, flag):
     err = capsys.readouterr().err
     assert err == f"/!\\ ERROR: {flag} is not yet supported by the PyTorch port\n"
     assert not list(tmp_path.glob("o_*"))
+
+
+@pytest.mark.parametrize("k", [17, 33])
+def test_k_range_matches_jax(tmp_path, capsys, k):
+    """-k 17 runs like the JAX package's (no longer refused by the port);
+    -k 33 exits 1 with its message and writes nothing."""
+    from approx_counter_tpu.config.cli import resolve_params as jax_resolve
+    from approx_counter_tpu_torch.config.cli import resolve_params
+
+    fasta = str(tmp_path / "r.fasta")
+    _write_fasta(fasta, 7, 12, 60, 90)
+    results = []
+    for tag, resolve, run in (("jax", jax_resolve, jax_run),
+                              ("torch", resolve_params,
+                               lambda p: run_pipeline(p, device="cpu"))):
+        out = str(tmp_path / f"{tag}_o")
+        rc = run(resolve([fasta, "-k", str(k), "-sl", "40", "-sn", "12",
+                          "-lim", "20", "--seed", "3", "-o", out]))
+        cap = capsys.readouterr()
+        files = {p.name[len(tag) + 1:]: p.read_bytes()
+                 for p in sorted(tmp_path.glob(f"{tag}_o*"))}
+        results.append((rc, _strip_ms(cap.out), cap.err, files))
+    want, got = results
+    assert got == want
+    assert got[0] == (0 if k == 17 else 1)
+    if k == 33:
+        assert got[2] == ("/!\\ ERROR: kmer size must be between 2 and 32 "
+                          "(included)\n")
+        assert not got[3]
+    else:
+        assert len(got[3]) == 2  # o_0.start, o_0.end
 
 
 def test_cli_without_cuda_exits_1(tmp_path, capsys, monkeypatch):
