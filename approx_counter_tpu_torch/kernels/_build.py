@@ -3,8 +3,9 @@
 Each kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The sliced level NFA is built once per (k, maxerr) with
-``-DKMER`` and ``-DMAXERR``; the other kernels take k, maxerr and the pack
-width as arguments and are built once each.  Libraries go to
+``-DKMER`` and ``-DMAXERR``; the other kernels take their sizes (k, maxerr
+and the pack width, or the stage network's rows and stages) as arguments
+and are built once each.  Libraries go to
 ``build/torch_kernels/`` beside the package, named by a hash of the source,
 the headers of ``csrc/`` and the flags, so a changed source rebuilds and an
 unchanged one is reused.  A missing ``nvcc`` or a failed build raises:
@@ -40,6 +41,7 @@ SIGNATURES = {
     "bpm_myers": [_P] * 4 + [_I] * 5 + [_P],    # peq win valid out | C m W k e
     "bpm_packed": [_P] * 4 + [_I] * 6 + [_P],   # words win valid out | n m W k e pack
     "nfa_packed": [_P] * 4 + [_I] * 6 + [_P],
+    "sort_stage": [_P] * 2 + [_I] * 3 + [_P],   # in out | rows stages transpose_every
 }
 
 

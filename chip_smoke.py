@@ -25,10 +25,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   5. The CLI at -sn 3000 on the card and ``run_pipeline`` on the CPU, at
      k=16, 17 and 32: all exports byte-equal.
   6. The check path: ``gpu_check.run()`` on the card, every row OK and
-     every kernel launched in it.
-Each kernel's bound is the larger of its bytes over the memory rate and its
-integer-pipe instructions (the SASS of its text loop, from cuobjdump) over
-132 SMs x 64 INT32 lanes x the card's maximum SM clock.
+     every approximate-count kernel launched in it.
+  7. The bitonic-stage probe's stage network (``csrc/sort_stage.cu``) vs
+     its plain version, exact equality: at the probe's shape (int32
+     [32768, 128], 210 stages, with and without a tile transpose every 20
+     stages) and at small shapes (rows 16, 144, 128, 384 x stages 0, 1, 19,
+     21, 210 x transpose every 0, 1, 20; negatives, ties and the int32
+     extremes in the input).  Both times at the probe's shape; the kernel
+     may not beat its bound.  The SASS of the stage loop: 16 integer
+     min/max per trip, one stage a trip.  Then the probe's entry point,
+     ``native.sort_stage_probe5.main()``: rc 0, the kernel launched, its
+     lines printed.
+Each approximate-count kernel's bound is the larger of its bytes over the
+memory rate and its integer-pipe instructions (the SASS of its text loop,
+from cuobjdump) over 132 SMs x 64 INT32 lanes x the card's maximum SM
+clock; the stage network's counts one min or max per element and stage.
 The last two lines of stdout are one JSON object on the kernels and one
 ``{"ok": true, "device": ...}`` object.
 
@@ -56,12 +67,15 @@ sys.path.insert(0, REPO)
 CSRC = "approx_counter_tpu_torch/csrc"
 TPU_BPM = "approx_counter_tpu/kernels/bpm.py"
 # kernel -> (source, Pallas kernel it replaces, candidates per thread per
-# pack field: kCands / kWords in the sources, 32 for the bit-sliced words)
+# pack field: kCands / kWords in the sources, 32 for the bit-sliced words;
+# None for the stage network, which counts no candidates)
 KERNELS = {
     "nfa_sliced": (f"{CSRC}/nfa_sliced.cu", f"{TPU_BPM}:718", 32),
     "bpm_myers": (f"{CSRC}/bpm_myers.cu", f"{TPU_BPM}:264", 8),
     "bpm_packed": (f"{CSRC}/bpm_packed.cu", f"{TPU_BPM}:399", 8),
     "nfa_packed": (f"{CSRC}/nfa_packed.cu", f"{TPU_BPM}:505", 8),
+    "sort_stage": (f"{CSRC}/sort_stage.cu", "native/sort_stage_probe5.py:48",
+                   None),
 }
 SMALL_KS = (2, 3, 16, 31, 32)
 MAIN = dict(C=500, W=40000, m=101, maxerr=2, n_invalid=333)
@@ -71,6 +85,7 @@ SMS, INT_LANES, HBM_BYTES_PER_S = 132, 64, 3.35e12
 # pipe, uniform-datapath U* ops and loads elsewhere)
 INT_PIPE = re.compile(r"(LOP3|LOP|IADD3|IADD|SHF|SEL|ISETP|VIADD|VIMNMX|"
                       r"IMNMX|PRMT|LEA|IABS|BMSK|SGXT|PLOP3)\b")
+MINMAX = re.compile(r"V?IMNMX\b")
 START_ADAPTER = "AATGTACTTCGTTCAGTTACGTATTGCT"
 END_ADAPTER = "GCAATACGTAACTGAACGAAGTACATT"
 
@@ -112,7 +127,7 @@ def phase_build() -> dict:
         builds = {key: f.result() for key, f in futs.items()}
     wall = time.perf_counter() - t0
     shown = [("nfa_sliced", 16, 2), ("nfa_sliced", 32, 3), ("bpm_myers",),
-             ("bpm_packed",), ("nfa_packed",)]
+             ("bpm_packed",), ("nfa_packed",), ("sort_stage",)]
     log(f"[build] {len(builds)} libraries in {wall:.2f} s wall (one nvcc "
         f"each, all at once): " + ", ".join(
             f"{'/'.join(map(str, key))} {builds[key].seconds:.2f} s"
@@ -122,21 +137,18 @@ def phase_build() -> dict:
         for line in builds[key].log.splitlines():
             mf = re.search(r"Compiling entry function '(\S+)'", line)
             if mf:
-                fn = re.search(r"kernel(ILi.*?EE)?", mf.group(1)).group(1) or ""
+                fn = re.search(r"kernel(IL[bi].*?EE)?", mf.group(1)).group(1) or ""
             elif "registers" in line or "spill" in line:
                 log(f"[build] {'/'.join(map(str, key))} {fn}: {line.strip()}")
     return builds
 
 
-def sass_int_ops_per_step(so, kernel: str, targs: tuple = ()) -> float:
-    """Integer-pipe SASS instructions per text step of ``kernel`` (a thread's
-    step over all its candidates): the instructions of the kernel's largest
-    backward-branch loop that match INT_PIPE, over the loop's text-byte
-    loads (steps per iteration)."""
+def sass_loops(so, sym: str) -> list[list[str]]:
+    """The backward-branch loops of the one function of library ``so`` whose
+    mangled name holds ``sym``, from cuobjdump: each loop's instructions
+    (predicates stripped), the largest loop first."""
     from approx_counter_tpu_torch.kernels._build import _nvcc
 
-    sym = f"{kernel}_kernel" + (
-        "I" + "".join(f"Li{a}E" for a in targs) + "E" if targs else "E")
     sass = subprocess.run(
         [os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass", str(so)],
         capture_output=True, text=True, check=True).stdout
@@ -146,15 +158,53 @@ def sass_int_ops_per_step(so, kernel: str, targs: tuple = ()) -> float:
         raise AssertionError(f"{len(funcs)} functions match {sym} in {so}")
     ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", i.strip())) for a, i in
            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", funcs[0])]
-    loops = [(a - int(t, 16), int(t, 16), a) for a, i in ins
-             for t in re.findall(r"^BRA\s+(?:`\()?0x([0-9a-f]+)", i)
-             if int(t, 16) < a]
-    _, lo, hi = max(loops)
-    body = [i for a, i in ins if lo <= a <= hi]
+    loops = sorted(((a - int(t, 16), int(t, 16), a) for a, i in ins
+                    for t in re.findall(r"^BRA\s+(?:`\()?0x([0-9a-f]+)", i)
+                    if int(t, 16) < a), reverse=True)
+    return [[i for a, i in ins if lo <= a <= hi] for _, lo, hi in loops]
+
+
+def sass_int_ops_per_step(so, kernel: str, targs: tuple = ()) -> float:
+    """Integer-pipe SASS instructions per text step of ``kernel`` (a thread's
+    step over all its candidates): the instructions of the kernel's largest
+    backward-branch loop that match INT_PIPE, over the loop's text-byte
+    loads (steps per iteration)."""
+    sym = f"{kernel}_kernel" + (
+        "I" + "".join(f"Li{a}E" for a in targs) + "E" if targs else "E")
+    body = sass_loops(so, sym)[0]
     steps = sum("LDG.E.U8" in i for i in body)
     if steps < 1:
         raise AssertionError(f"{sym}: no text load in its largest loop")
     return sum(bool(INT_PIPE.match(i)) for i in body) / steps
+
+
+def sass_minmax_per_stage_trip(so) -> dict:
+    """Integer min/max instructions in the innermost loop that holds any, for
+    both instances of the stage-network kernel (transpose off, on).  Each
+    must be 16: one stage a trip, so the loop runs its runtime trip count
+    of stages and no stage was folded into another."""
+    counts = {}
+    for transpose in (0, 1):
+        sym = f"sort_stage_kernelILb{transpose}EE"
+        per_loop = [sum(bool(MINMAX.match(i)) for i in body)
+                    for body in sass_loops(so, sym)]
+        # loops come largest first: the last one with min/max is innermost
+        inner = [n for n in per_loop if n] or [0]
+        counts[f"transpose={transpose}"] = inner[-1]
+        if inner[-1] != 16:
+            raise AssertionError(f"{sym}: {inner[-1]} integer min/max in its "
+                                 f"stage loop, want 16 (one stage a trip)")
+    return counts
+
+
+def roofline(ops: float, nbytes: float, clock_hz: float) -> tuple[float, str]:
+    """(bound ms, what bounds it): ``ops`` integer-pipe instructions over
+    the card's INT32 lanes at ``clock_hz``, against ``nbytes`` over the
+    memory rate."""
+    t_ops = ops / (SMS * INT_LANES * clock_hz)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def bound(kernel: str, ops_per_step: float, C: int, pack: int,
@@ -163,11 +213,8 @@ def bound(kernel: str, ops_per_step: float, C: int, pack: int,
     m, W = MAIN["m"], MAIN["W"]
     per_thread = KERNELS[kernel][2] * pack
     ops = ops_per_step * m * W * -(-C // per_thread)
-    t_ops = ops / (SMS * INT_LANES * clock_hz)
     # inputs once: int64 peq [C, 4], text [m, W], valid [W]; int32 out [C]
-    t_bytes = (32 * C + m * W + W + 4 * C) / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    return roofline(ops, 32 * C + m * W + W + 4 * C, clock_hz)
 
 
 def random_case(rng, C: int, W: int, m: int, k: int, n_invalid: int):
@@ -212,20 +259,22 @@ def time_ms(fn, reps: int) -> float:
 
 def launch_counts() -> dict:
     """Each kernel's launch count, read from its wrapper."""
-    from approx_counter_tpu_torch.kernels import bpm
+    from approx_counter_tpu_torch.kernels import bpm, sort_stage
 
     return {"nfa_sliced": bpm.approx_counts.launches,
             "bpm_myers": bpm.approx_counts_myers.launches,
             "bpm_packed": bpm.approx_counts_packed.launches["myers"],
-            "nfa_packed": bpm.approx_counts_packed.launches["nfa"]}
+            "nfa_packed": bpm.approx_counts_packed.launches["nfa"],
+            "sort_stage": sort_stage.stage_network.launches}
 
 
 def reset_launch_counts() -> None:
-    from approx_counter_tpu_torch.kernels import bpm
+    from approx_counter_tpu_torch.kernels import bpm, sort_stage
 
     bpm.approx_counts.launches = 0
     bpm.approx_counts_myers.launches = 0
     bpm.approx_counts_packed.launches = {"myers": 0, "nfa": 0}
+    sort_stage.stage_network.launches = 0
 
 
 def main_case(rng, k: int):
@@ -497,11 +546,100 @@ def phase_gpu_check() -> dict:
     failed = [name for name, ok in rows if not ok]
     if failed:
         raise AssertionError(f"gpu_check failed rows: {failed}")
-    idle = [name for name, n in counts.items() if n < 1]
+    idle = [name for name, n in counts.items()
+            if n < 1 and name != "sort_stage"]
     if idle:
         raise AssertionError(f"gpu_check launched no {idle}")
     log(f"[gpu_check] {len(rows)} rows OK in {wall:.2f} s; launches {counts}")
     return counts
+
+
+def int32_case(rng, rows: int):
+    """Seeded int32 [rows, 128] on the card over the whole int32 range, a
+    fifth of it ties among -3..2, and the int32 extremes."""
+    import torch
+
+    x = rng.integers(-(1 << 31), 1 << 31, (rows, 128)).astype(np.int32)
+    x[rng.random(x.shape) < 0.2] = rng.integers(-3, 3)
+    x.flat[:2] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    return torch.from_numpy(x).to("cuda")
+
+
+PROBE_LINES = ("model: 210 stages x 4 x 8192x128 int32", "(s1) stages only",
+               "(s2) + transpose/20", "torch.sort P=3522560 int32",
+               "torch.sort P=3522560 int64", "done")
+
+
+def phase_sort_stage(builds: dict, clock_hz: float) -> tuple[dict, int]:
+    """The stage network against its plain version, its times, bound and
+    SASS, then the probe's entry point.  Returns the kernel's entry (at
+    the (s1) shape) and the launches of the entry point's run."""
+    from approx_counter_tpu_torch.kernels.sort_stage import (
+        stage_network,
+        stage_network_ref,
+        stages_run,
+    )
+    from approx_counter_tpu_torch.native import sort_stage_probe5 as probe
+
+    rng = np.random.default_rng(22)
+    shapes = [(rows, stages, te) for rows in (16, 144, 128, 384)
+              for stages in (0, 1, 19, 21, 210) for te in (0, 1, 20)
+              if not (te and rows % 128)]
+    max_err = 0
+    for rows, stages, te in shapes:
+        x = int32_case(rng, rows)
+        max_err = max(max_err, exact_diff(
+            stage_network(x, stages, te), stage_network_ref(x, stages, te),
+            f"sort_stage != plain at rows={rows} stages={stages} "
+            f"transpose_every={te}"))
+    log(f"[sort_stage] {len(shapes)} small shapes (rows 16/144/128/384 x "
+        f"stages 0/1/19/21/210 x transpose every 0/1/20): kernel == plain "
+        f"exactly")
+
+    rows, entry = probe.BLOCKS * probe.ROWS, None
+    for te in (0, probe.TRANSPOSE_EVERY):
+        x = int32_case(rng, rows)
+        err = exact_diff(stage_network(x, probe.STAGES, te),
+                         stage_network_ref(x, probe.STAGES, te),
+                         f"sort_stage != plain at the probe's shape, "
+                         f"transpose_every={te}")
+        ms = time_ms(lambda: stage_network(x, probe.STAGES, te), 20)
+        plain_ms = time_ms(lambda: stage_network_ref(x, probe.STAGES, te), 3)
+        run = stages_run(probe.STAGES, te)
+        # one min or max per element and stage; int32 in and out once
+        bound_ms, bound_by = roofline(run * rows * 128, 8 * rows * 128,
+                                      clock_hz)
+        log(f"[sort_stage] [{rows}, 128] int32, {run} stages, transpose "
+            f"every {te}: kernel == plain exactly; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (CUDA events, mean of 20 / 3 calls after 2 "
+            f"warm-up); bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{run * rows * 128 / ms / 1e9:.4f} T elem-stages/s")
+        if ms < bound_ms:
+            raise AssertionError(f"sort_stage {ms:.4f} ms is under its bound "
+                                 f"{bound_ms:.4f} ms: work was elided")
+        if entry is None:
+            entry = dict(max_abs_err=max(max_err, err), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    per_trip = sass_minmax_per_stage_trip(builds[("sort_stage",)].so)
+    log(f"[sort_stage] SASS integer min/max per stage-loop trip: {per_trip} "
+        f"(one stage a trip, runtime trip count)")
+
+    reset_launch_counts()
+    err_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err_out):
+        rc = probe.main([])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()["sort_stage"]
+    for line in err_out.getvalue().splitlines():
+        log(f"[probe] {line}")
+    missing = [s for s in PROBE_LINES if s not in err_out.getvalue()]
+    if rc != 0 or launches < 1 or missing:
+        raise AssertionError(f"probe: rc {rc}, {launches} launches, lines "
+                             f"missing: {missing}")
+    log(f"[probe] rc 0 in {wall:.2f} s; launches {launch_counts()}")
+    return entry, launches
 
 
 def main() -> int:
@@ -533,6 +671,8 @@ def main() -> int:
     checks = phase_gpu_check()
     for name in ("bpm_myers", "bpm_packed", "nfa_packed"):
         launches[name] = checks[name]
+    entries["sort_stage"], launches["sort_stage"] = phase_sort_stage(
+        builds, clock_hz)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
