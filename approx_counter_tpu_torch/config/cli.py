@@ -81,21 +81,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reproduce documented reference bugs (see SURVEY.md §5)")
     p.add_argument("--stream", action="store_true", default=False,
                    help="stream the input in bounded memory with reservoir "
-                        "sampling (extension; not yet supported by the "
-                        "PyTorch port)")
+                        "sampling (extension; for files larger than RAM)")
     p.add_argument("--max-error", type=int, default=None, metavar="E",
                    help="edit-distance bound for approximate counting, "
                         "0 <= E <= 3 (extension; the reference hardcodes 2)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="dump a profiler trace of the run to DIR "
-                        "(extension; not yet supported by the PyTorch port)")
+                   help="write a torch.profiler Chrome trace of the run to "
+                        "DIR/trace.json (extension)")
     p.add_argument("--multihost", action="store_true", default=False,
                    help="multi-host mode (extension; not yet supported "
                         "by the PyTorch port)")
     p.add_argument("--from-exact", type=str, default=None,
                    help="resume: read candidate k-mers from a prior exact "
                         "export (kmer\\tcount lines) instead of re-counting "
-                        "(extension; not yet supported by the PyTorch port)")
+                        "(extension)")
     p.add_argument("--device-pool", choices=("auto", "on", "off"),
                    default="auto",
                    help="device-resident window pool for multi-pass runs "

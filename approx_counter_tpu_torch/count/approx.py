@@ -6,7 +6,9 @@ the ``get_most_frequent`` re-rank after ``errorCount``
 total`` for every candidate, zero totals included, and those appear in the
 exported ranking.  Here every row is a real candidate (the selection keeps
 exactly ``n_keep`` of them), so zero counts rank like any other count and
-need none of the JAX version's +1 key offset for padded slots.
+need none of the JAX version's +1 key offset for padded slots.  A resume
+list may repeat a code: its copies are equal in every key and rank side by
+side.
 """
 
 from __future__ import annotations

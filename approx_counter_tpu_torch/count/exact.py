@@ -11,7 +11,11 @@ approx_counter.cpp:487-519, ``get_most_frequent`` :396-405) with torch ops:
      (``unique_consecutive``);
   3. drop low-complexity (DUST) and forbidden codes among the unique ones
      (the filters depend only on the code);
-  4. rank the survivors in CompareCount order and keep the first ``limit``.
+  4. rank the survivors in CompareCount order and keep the first ``limit``
+     or, in solid mode (``solid_km > 0``, ``get_solid_kmers``
+     approx_counter.cpp:372-388), every survivor counted ``solid_km`` times
+     or more.  Solid mode has no cap: torch shapes follow the data, so the
+     JAX package's cap regrowth has no counterpart here.
 
 Everything is a sort or a sum over positions, so the result does not depend
 on the window order.
@@ -32,11 +36,15 @@ def exact_count_select(
     lc_sum_thr: int,           # integer dimer-sum threshold (lc_sum_threshold)
     forbidden: torch.Tensor,   # int64 [F] codes (F may be 0)
     limit: int,
+    solid_km: int = 0,
 ) -> dict:
     """Top-``limit`` k-mers by CompareCount among those that pass the
-    filters.  Returns ``sel_codes`` (int64) and ``sel_counts`` (int64) of
-    length ``n_keep``, plus the ints ``n_unique``, ``n_pass``, ``n_keep``
-    and ``had_n``."""
+    filters, or with ``solid_km > 0`` all of them whose count is at least
+    ``solid_km`` (``limit`` is then ignored), in CompareCount order, the JAX
+    package's deterministic refinement of the reference's tie-less sort.
+    Returns ``sel_codes`` (int64) and ``sel_counts`` (int64) of length
+    ``n_keep``, plus the ints ``n_unique``, ``n_pass``, ``n_keep`` and
+    ``had_n``."""
     if not 2 <= k <= 32:
         raise ValueError(f"exact_count_select takes 2 <= k <= 32, got {k}")
     m, n = windows_t.shape
@@ -72,11 +80,13 @@ def exact_count_select(
     keep = dimer_sum(codes, k) < lc_sum_thr
     if forbidden.numel():
         keep &= ~torch.isin(codes, forbidden)
+    if solid_km > 0:
+        keep &= counts >= solid_km
     codes, counts = codes[keep], counts[keep]
     n_pass = codes.numel()
 
-    # --- 4. CompareCount top-limit ------------------------------------------
-    n_keep = min(n_pass, limit)
+    # --- 4. CompareCount top-limit, or every solid k-mer --------------------
+    n_keep = n_pass if solid_km > 0 else min(n_pass, limit)
     order = compare_count_order(codes, counts, k)[:n_keep]
     return dict(
         sel_codes=codes[order],

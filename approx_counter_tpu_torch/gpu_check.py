@@ -17,7 +17,12 @@ Checks:
   * the exact stage (k=8, 256 windows, limit 32) against
     ``oracle_count_kmers`` / ``oracle_get_most_frequent``;
   * ``Engine.count_one_end`` at k=8 and k=17 against the oracle pipeline:
-    the exact selection, the re-ranked approximate counts and ``had_n``.
+    the exact selection, the re-ranked approximate counts and ``had_n``,
+    in top-N mode and in solid mode (``-sk 2``: ``oracle_get_solid_kmers``,
+    more candidates than ``limit``, the approximate ranking cut to it);
+  * ``Engine.approx_stage``, the resume pass, on an explicit code list
+    with a repeated code and more codes than ``limit``, against
+    ``oracle_error_count``.
 
 Every count is an integer and every comparison exact.  Prints one row per
 check, then ``GPU-CHECK PASS`` or ``GPU-CHECK FAIL (n)``; exits 1 on any
@@ -48,6 +53,7 @@ from approx_counter_tpu_torch.oracle import (
     oracle_count_kmers,
     oracle_error_count,
     oracle_get_most_frequent,
+    oracle_get_solid_kmers,
     oracle_sort_compare_count,
 )
 from approx_counter_tpu_torch.params import Params
@@ -99,31 +105,66 @@ def _exact_stage_row(rng, device) -> tuple[str, bool]:
             got == oracle_get_most_frequent(counter, limit, k))
 
 
+def _pass_windows(rng, k, sl, n, n_valid):
+    """[n, sl+1] windows with count-2 and count-3 rows and Ns, and the
+    oracle's view of their valid rows."""
+    wins = np.full((n, sl + 1), BASE_PAD, np.uint8)
+    wins[:n_valid, :sl] = rng.integers(0, 4, (n_valid, sl))
+    wins[2] = wins[1]  # count-2 class
+    wins[3] = wins[1]  # count-3 class member
+    wins[5] = wins[4]
+    for _ in range(23):  # Ns inside the valid region
+        wins[rng.integers(0, n_valid), rng.integers(0, sl)] = BASE_N
+    return wins, [wins[i, :sl] for i in range(n_valid)]
+
+
+def _pairs(codes, counts) -> list[tuple[int, int]]:
+    return list(zip(codes.tolist(), counts.tolist()))
+
+
 def _pass_rows(rng, device) -> list[tuple[str, bool]]:
     rows = []
-    for k, sl, n, n_valid, limit in ((8, 24, 128, 121, 37),
-                                     (17, 20, 64, 59, 21)):
-        wins = np.full((n, sl + 1), BASE_PAD, np.uint8)
-        wins[:n_valid, :sl] = rng.integers(0, 4, (n_valid, sl))
-        wins[2] = wins[1]  # count-2 class
-        wins[3] = wins[1]  # count-3 class member
-        for _ in range(23):  # Ns inside the valid region
-            wins[rng.integers(0, n_valid), rng.integers(0, sl)] = BASE_N
-
-        texts = [wins[i, :sl] for i in range(n_valid)]
+    for k, sl, n, n_valid, limit, solid_km in (
+            (8, 24, 128, 121, 37, 0), (17, 20, 64, 59, 21, 0),
+            (8, 24, 64, 61, 12, 2), (17, 30, 64, 59, 9, 2)):
+        wins, texts = _pass_windows(rng, k, sl, n, n_valid)
         counter, had_n = oracle_count_kmers(
             texts, k, adjust_threshold(1.0, 16, k), set())
-        sel = oracle_get_most_frequent(counter, limit, k)
+        if solid_km:
+            sel = oracle_get_solid_kmers(counter, solid_km, k)
+        else:
+            sel = oracle_get_most_frequent(counter, limit, k)
         ranked = oracle_sort_compare_count(
             oracle_error_count(texts, [c for c, _ in sel], k), k)[:limit]
 
-        engine = Engine(Params(k=k, sl=sl, limit=limit, param_lc=1.0), device)
+        engine = Engine(Params(k=k, sl=sl, limit=limit, solid_km=solid_km,
+                               param_lc=1.0), device)
         (ec, ecnt), (ac, acnt), stats = engine.count_one_end(wins, n_valid)
-        ok = (list(zip(ec.tolist(), ecnt.tolist())) == sel
-              and list(zip(ac.tolist(), acnt.tolist())) == ranked
-              and stats["had_n"] == had_n)
-        rows.append((f"whole pass k={k:2d} vs oracle", ok))
+        ok = (_pairs(ec, ecnt) == sel and _pairs(ac, acnt) == ranked
+              and stats["had_n"] == had_n
+              and (not solid_km or len(sel) > limit))
+        mode = f"-sk {solid_km}" if solid_km else "top-N"
+        rows.append((f"whole pass k={k:2d} {mode} vs oracle", ok))
     return rows
+
+
+def _resume_row(rng, device) -> tuple[str, bool]:
+    """A resume pass over a code list with a repeated code, cut to
+    ``limit``: every copy of a code scores alike and ranks side by side."""
+    k, sl, n, n_valid, limit = 9, 30, 64, 57, 7
+    wins, texts = _pass_windows(rng, k, sl, n, n_valid)
+    codes = [int(c) for c in rng.integers(0, 1 << (2 * k), 6)]
+    for i in (0, 7, 14):  # k-mers of a count-3 window (an N read as T)
+        codes.append(int("".join(map(str, np.minimum(wins[1, i:i + k], 3))), 4))
+    codes.append(codes[-1])
+    counts = oracle_error_count(texts, codes, k)
+    ranked = [(c, n) for c, n in oracle_sort_compare_count(counts, k)
+              for _ in range(codes.count(c))][:limit]
+    engine = Engine(Params(k=k, sl=sl, limit=limit, param_lc=1.0), device)
+    ac, acnt = engine.approx_stage(wins, n_valid,
+                                   np.array(codes, dtype=np.uint64))
+    return ("resume pass k= 9 (a repeated code) vs oracle",
+            _pairs(ac, acnt) == ranked and len(codes) > limit)
 
 
 def run(device=torch.device("cuda")) -> list[tuple[str, bool]]:
@@ -133,6 +174,7 @@ def run(device=torch.device("cuda")) -> list[tuple[str, bool]]:
     rows = _kernel_rows(rng, device)
     rows.append(_exact_stage_row(rng, device))
     rows += _pass_rows(rng, device)
+    rows.append(_resume_row(rng, device))
     return rows
 
 

@@ -3,6 +3,7 @@
 Byte-parity with the reference's ``exportCounter``
 (approx_counter.cpp:157-174): ``kmer\\tcount\\n`` per line, in iteration
 order (for us: CompareCount order).  Open failure -> stderr message + False.
+``parse_exact_export`` reads such a file back for ``--from-exact``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,12 @@ import sys
 
 import numpy as np
 
-from approx_counter_tpu_torch.core.codec import decode_kmers
+from approx_counter_tpu_torch.core.codec import (
+    BASE_N,
+    decode_kmers,
+    encode_kmer,
+    seq_to_codes,
+)
 
 
 def _lines(codes: np.ndarray, counts: np.ndarray, k: int, sep: str) -> str:
@@ -30,3 +36,30 @@ def export_counter(codes, counts, k: int, output: str) -> bool:
         sys.stderr.write(f"/!\\ ERROR: COULD NOT OPEN FILE {output}\n")
         return False
     return True
+
+
+def parse_exact_export(path: str, k: int) -> np.ndarray:
+    """Read a ``kmer\\tcount`` export back as uint64 codes, in file order
+    and with repeats (resume mode; the counts are ignored).
+
+    Lines whose k-mer is not pure ACGT of length k raise
+    ``InputFormatError`` naming ``path:line`` -- a resume file from a
+    different k is a user error, not data.  A missing file raises
+    ``FileNotFoundError``.
+    """
+    from approx_counter_tpu_torch.io.fastx import InputFormatError
+
+    codes = []
+    with open(path) as f:
+        for ln, line in enumerate(f, 1):
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            kmer = line.split("\t")[0]
+            c = seq_to_codes(kmer)
+            if len(c) != k or (c >= BASE_N).any():
+                raise InputFormatError(
+                    f"{path}:{ln}: '{kmer}' is not a pure-ACGT {k}-mer"
+                )
+            codes.append(encode_kmer(c))
+    return np.array(codes, dtype=np.uint64)

@@ -4,8 +4,11 @@ The reference reads the whole file into RAM via SeqAn's ``SeqFileIn`` /
 ``readRecords`` with auto-detected format (approx_counter.cpp:824-825).  Here
 reads land in a single contiguous ``uint8`` ordinal buffer plus an offsets
 vector -- the shape the sampler and the device pipeline want.  A copy of
-``approx_counter_tpu/io/fastx.py`` without its optional native parser: the
-Python parser here yields the same ``Reads``.
+``approx_counter_tpu/io/fastx.py``: plain files go through the native C++
+parser (``io/native.py``, built from ``csrc/fastx_parser.cpp`` at first use),
+gzip files through the Python parser, which is also the plain reference the
+tests hold the native one to.  The native parser is not optional: when it
+cannot be built, ``read_fastx`` raises.
 """
 
 from __future__ import annotations
@@ -70,6 +73,11 @@ def _detect_format(first_byte: int) -> str:
     raise InputFormatError(
         "Unrecognized sequence file format (expected FASTA or FASTQ)"
     )
+
+
+def is_gzip(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(2) == b"\x1f\x8b"
 
 
 def read_fastx_py(path: str) -> Reads:
@@ -144,7 +152,12 @@ def read_fastx_py(path: str) -> Reads:
 
 
 def read_fastx(path: str) -> Reads:
-    """Read a FASTA/FASTQ file (gzip inputs are decompressed)."""
+    """Read a FASTA/FASTQ file: the native parser for plain files, the
+    Python parser for gzip inputs."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    return read_fastx_py(path)
+    if is_gzip(path):
+        return read_fastx_py(path)
+    from approx_counter_tpu_torch.io.native import read_fastx_native
+
+    return read_fastx_native(path)

@@ -1,15 +1,18 @@
-"""Build the CUDA kernels from ``csrc/`` with nvcc at first use.
+"""Build the CUDA kernels and the host parser from ``csrc/`` at first use.
 
 Each kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The sliced level NFA is built once per (k, maxerr) with
-``-DKMER`` and ``-DMAXERR``; the other kernels take their sizes (k, maxerr
-and the pack width, or the stage network's rows and stages) as arguments
-and are built once each.  Libraries go to
+seconds).  The FASTA/FASTQ parser ``csrc/fastx_parser.cpp`` is host C++,
+compiled the same way by ``g++`` (``host_build``).  The sliced level NFA
+is built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``; the other
+kernels take their sizes (k, maxerr and the pack width, or the stage
+network's rows and stages) as arguments and are built once each.
+Libraries go to
 ``build/torch_kernels/`` beside the package, named by a hash of the source,
 the headers of ``csrc/`` and the flags, so a changed source rebuilds and an
-unchanged one is reused.  A missing ``nvcc`` or a failed build raises:
-there is no fallback.
+unchanged one is reused; a build writes a temporary file and renames it into
+place, so processes that build the same library at once are safe.  A
+missing compiler or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++14", "-shared", "-fPIC")
 
 
 # argtypes of each library's C entry, which has the library's name: the
@@ -46,9 +50,9 @@ SIGNATURES = {
 
 
 class KernelBuild:
-    """One built library: the ctypes handle, its path, nvcc's output
-    (ptxas register and spill report) and the build's wall seconds (0.0
-    when reused)."""
+    """One built library: the ctypes handle, its path, the compiler's
+    output (for a kernel, ptxas's register and spill report) and the
+    build's wall seconds (0.0 when reused)."""
 
     def __init__(self, lib: ctypes.CDLL, so: Path, log: str, seconds: float):
         self.lib = lib
@@ -72,8 +76,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _compile(src: Path, defines: tuple[str, ...], stem: str) -> tuple[Path, str, float]:
-    flags = NVCC_FLAGS + defines
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the port's FASTA/FASTQ parser is "
+                           "built with g++ at first use")
+    return gxx
+
+
+def _compile(compiler, flags: tuple[str, ...], src: Path,
+             stem: str) -> tuple[Path, str, float]:
+    """Build ``src`` with ``compiler()`` (called only when the library is
+    not cached) and ``flags`` into ``BUILD_DIR``; returns (library, the
+    compiler's output, build seconds)."""
     headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
     digest = hashlib.sha256(
         src.read_bytes() + headers + " ".join(flags).encode()
@@ -83,18 +98,17 @@ def _compile(src: Path, defines: tuple[str, ...], stem: str) -> tuple[Path, str,
     if so.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return so, log, 0.0
+    cc = compiler()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", tmp, str(src)],
-            capture_output=True, text=True,
-        )
+        proc = subprocess.run([cc, *flags, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for {src.name} {' '.join(defines)}:\n"
+                f"{Path(cc).name} failed for {src.name} {' '.join(flags)}:\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, so)
@@ -107,22 +121,42 @@ def _compile(src: Path, defines: tuple[str, ...], stem: str) -> tuple[Path, str,
     return so, log, seconds
 
 
-def kernel_build(name: str, defines: tuple[str, ...] = ()) -> KernelBuild:
-    """The library of ``csrc/<name>.cu`` built with ``defines``, built on
-    first use (once per process and argument set, also across threads)."""
-    key = (name, defines)
+def _cached(key: tuple, make) -> KernelBuild:
+    """``make()``'s build, made once per process and key (also across
+    threads)."""
     with _locks_guard:
         lock = _locks.setdefault(key, threading.Lock())
     with lock:
         if key not in _builds:
-            stem = "_".join([name, *(d.split("=")[-1] for d in defines)])
-            so, log, seconds = _compile(SRC_DIR / f"{name}.cu", defines, stem)
-            lib = ctypes.CDLL(str(so))
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = SIGNATURES[name]
-            _builds[key] = KernelBuild(lib, so, log, seconds)
+            _builds[key] = make()
         return _builds[key]
+
+
+def kernel_build(name: str, defines: tuple[str, ...] = ()) -> KernelBuild:
+    """The library of ``csrc/<name>.cu`` built with ``defines``, built on
+    first use."""
+    def make():
+        stem = "_".join([name, *(d.split("=")[-1] for d in defines)])
+        so, log, seconds = _compile(_nvcc, NVCC_FLAGS + defines,
+                                    SRC_DIR / f"{name}.cu", stem)
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = SIGNATURES[name]
+        return KernelBuild(lib, so, log, seconds)
+
+    return _cached((name, defines), make)
+
+
+def host_build(name: str) -> KernelBuild:
+    """The library of the host C++ source ``csrc/<name>.cpp``, built by
+    ``g++`` on first use.  The caller declares its functions' types."""
+    def make():
+        so, log, seconds = _compile(_gxx, GXX_FLAGS, SRC_DIR / f"{name}.cpp",
+                                    name)
+        return KernelBuild(ctypes.CDLL(str(so)), so, log, seconds)
+
+    return _cached((name, "host"), make)
 
 
 def nfa_sliced_build(k: int, maxerr: int) -> KernelBuild:

@@ -267,12 +267,27 @@ def _launch(fn, tensors, ints) -> None:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
 
 
+#: Most candidate words one sliced-NFA launch takes: the kernel puts the
+#: words on ``grid.y``, which CUDA caps at 65,535 blocks.
+MAX_GRID_Y = 65535
+
+
+def word_launches(n_words: int, max_words: int = MAX_GRID_Y) -> list[tuple[int, int]]:
+    """(first word, word count) of each sliced-NFA launch for ``n_words``
+    32-candidate words: one launch up to ``max_words``, then consecutive
+    slices of at most ``max_words`` words."""
+    return [(w, min(max_words, n_words - w)) for w in range(0, n_words, max_words)]
+
+
 def approx_counts(peq: torch.Tensor, windows_t: torch.Tensor,
                   window_valid: torch.Tensor, k: int,
                   maxerr: int = MAXERR) -> torch.Tensor:
     """int32 [C] approximate counts: the sliced level NFA
     (``csrc/nfa_sliced.cu``) for CUDA tensors, the plain version for CPU
-    tensors.  ``approx_counts.launches`` counts the kernel launches."""
+    tensors.  Any C: past 65,535 words (2,097,120 candidates) the words
+    are split over several launches (``word_launches``), each writing its
+    own slice of the counts.  ``approx_counts.launches`` counts the kernel
+    launches."""
     _check_inputs(peq, windows_t, window_valid, k, maxerr)
     C = peq.shape[0]
     m, W = windows_t.shape
@@ -288,9 +303,11 @@ def approx_counts(peq: torch.Tensor, windows_t: torch.Tensor,
         peq = torch.cat([peq, peq.new_zeros((c_pad - C, 4))])
     p0, p1 = (_as_int32_bits(p).contiguous() for p in build_sliced_planes(peq, k))
     out = torch.zeros(c_pad, dtype=torch.int32, device=peq.device)
-    _launch(nfa_sliced_build(k, maxerr).lib.nfa_sliced,
-            (p0, p1, windows_t, window_valid, out), (c_pad // 32, m, W))
-    approx_counts.launches += 1
+    fn = nfa_sliced_build(k, maxerr).lib.nfa_sliced
+    for w0, n in word_launches(c_pad // 32):
+        _launch(fn, (p0[w0:w0 + n], p1[w0:w0 + n], windows_t, window_valid,
+                     out[32 * w0:32 * (w0 + n)]), (n, m, W))
+        approx_counts.launches += 1
     return out[:C]
 
 

@@ -43,13 +43,11 @@ class Params:
     # --- framework extensions ---
     seed: int | None = None
     compat_quirks: bool = False
-    stream: bool = False        # bounded-memory streaming IO (JAX package
-    #                             only; not yet supported here)
-    from_exact: str = ""        # resume from a prior exact export (JAX
-    #                             package only; not yet supported here)
+    stream: bool = False        # bounded-memory streaming IO
+    from_exact: str = ""        # resume from a prior exact export
     multihost: bool = False     # multi-host mode (JAX package only; not
     #                             yet supported here)
-    profile_dir: str = ""       # profiler trace dir (not yet supported here)
+    profile_dir: str = ""       # torch.profiler trace dir (__main__.run)
     max_error: int = 2          # edit-distance bound (reference hardcodes 2
     #                             at compile time, approx_counter.cpp:25)
     device_pool: str = "auto"   # accepted for flag compatibility; inert here

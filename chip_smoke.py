@@ -23,7 +23,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      k-mers on top.  Per-end wall time from the CLI's own log timestamps.
      Then the same run at -k 32: rc 0, kernel launched, 4 x 500 lines.
   5. The CLI at -sn 3000 on the card and ``run_pipeline`` on the CPU, at
-     k=16, 17 and 32: all exports byte-equal.
+     k=16, 17 and 32, and at k=16 with -sk 2, with --from-exact (phase 4's
+     warm k=16 exact .start) and with --stream: all exports byte-equal.
   6. The check path: ``gpu_check.run()`` on the card, every row OK and
      every approximate-count kernel launched in it.
   7. The bitonic-stage probe's stage network (``csrc/sort_stage.cu``) vs
@@ -36,6 +37,28 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      min/max per trip, one stage a trip.  Then the probe's entry point,
      ``native.sort_stage_probe5.main()``: rc 0, the kernel launched, its
      lines printed.
+  8. The candidate limit: the sliced NFA at C=2,100,000 (65,625 words, two
+     launches), W=2,048, m=101, k=16, maxerr 2, equal to its plain version
+     on ~4,000 rows (1,024 at random, the 1,000 on each side of candidate
+     2,097,120 and the last 1,000), and its first 2,097,120 counts equal to
+     one launch over those candidates alone; its time and bound.
+  9. Solid mode at full size: the default run at -sk 20 and at -sk 1.  The
+     exact export holds n_keep lines, every count >= N, in CompareCount
+     order; the approximate one min(n_keep, 500), adapters on top; the
+     launches are those the launch plan gives for each end's n_keep.  The
+     kernel's time and bound at the -sk 20 start end's C and at the -sk 1
+     one's.
+ 10. Resume: --from-exact on phase 4's warm k=16 exact .start, same seed:
+     no exact export, .start byte-equal to phase 4's, .end 500 lines.
+ 11. Stream: --stream -sn 60000 equals the in-memory run at -sn 60000 (every
+     read eligible); then, in a child process, --stream at the default sn on
+     a 500,000-read, ~440 MB FASTA (the 50,000 reads ten times over): rc 0,
+     4 x 500 lines, adapters on top, the stream's MB/s (from the CLI's log)
+     and the peak RSS growth of the run, against an in-memory run's.  Native
+     vs Python ``read_fastx`` MB/s on the 44 MB FASTA, equal ``Reads``.
+ 12. Profile: the default run with --profile: exports byte-equal to phase
+     4's warm run, the trace holds the sliced kernel; device-busy ms and
+     each end's busy share of its wall, from the trace.
 Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and its integer-pipe instructions (the SASS of its text loop,
 from cuobjdump) over 132 SMs x 64 INT32 lanes x the card's maximum SM
@@ -113,6 +136,7 @@ def max_sm_clock_hz() -> float:
 def phase_build() -> dict:
     """Builds every library in parallel; returns the builds by key."""
     from approx_counter_tpu_torch.kernels._build import (
+        host_build,
         kernel_build,
         nfa_sliced_build,
     )
@@ -121,13 +145,15 @@ def phase_build() -> dict:
             for k in SMALL_KS + (17,) for e in range(4)}
     jobs.update({(name,): (kernel_build, (name,)) for name in KERNELS
                  if name != "nfa_sliced"})
+    jobs[("fastx_parser",)] = (host_build, ("fastx_parser",))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         futs = {key: ex.submit(fn, *args) for key, (fn, args) in jobs.items()}
         builds = {key: f.result() for key, f in futs.items()}
     wall = time.perf_counter() - t0
     shown = [("nfa_sliced", 16, 2), ("nfa_sliced", 32, 3), ("bpm_myers",),
-             ("bpm_packed",), ("nfa_packed",), ("sort_stage",)]
+             ("bpm_packed",), ("nfa_packed",), ("sort_stage",),
+             ("fastx_parser",)]
     log(f"[build] {len(builds)} libraries in {wall:.2f} s wall (one nvcc "
         f"each, all at once): " + ", ".join(
             f"{'/'.join(map(str, key))} {builds[key].seconds:.2f} s"
@@ -208,9 +234,10 @@ def roofline(ops: float, nbytes: float, clock_hz: float) -> tuple[float, str]:
 
 
 def bound(kernel: str, ops_per_step: float, C: int, pack: int,
-          clock_hz: float) -> tuple[float, str]:
-    """(bound ms, what bounds it) at the main shape for C candidates."""
-    m, W = MAIN["m"], MAIN["W"]
+          clock_hz: float, m: int = MAIN["m"],
+          W: int = MAIN["W"]) -> tuple[float, str]:
+    """(bound ms, what bounds it) for C candidates and W windows of m
+    symbols (the main shape by default)."""
     per_thread = KERNELS[kernel][2] * pack
     ops = ops_per_step * m * W * -(-C // per_thread)
     # inputs once: int64 peq [C, 4], text [m, W], valid [W]; int32 out [C]
@@ -241,11 +268,11 @@ def random_case(rng, C: int, W: int, m: int, k: int, n_invalid: int):
     return codes, np.ascontiguousarray(wins.T), valid
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
 
-    fn()
-    fn()  # warm-up
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -451,18 +478,8 @@ def run_cli(argv: list[str]) -> tuple[int, str]:
 def end_seconds(stdout: str) -> dict:
     """Per-end wall seconds from the CLI log: 'Working on sequence X.' to
     that end's 'Done'."""
-    times, cur = {}, None
-    for line in stdout.splitlines():
-        mt = re.match(r"\[([0-9.e+]+) ms\]\t+(.*)", line)
-        if not mt:
-            continue
-        t, text = float(mt.group(1)), mt.group(2)
-        me = re.match(r"Working on sequence (start|end)\.", text)
-        if me:
-            cur = (me.group(1), t)
-        elif text == "Done" and cur:
-            times[cur[0]] = (t - cur[1]) / 1e3
-    return times
+    return {end: ms / 1e3 for end, ms in
+            per_end_ms(stdout, "Working on sequence", "Done").items()}
 
 
 def phase_main_path(fasta: str, out_dir: str, k: int) -> int:
@@ -502,32 +519,42 @@ def phase_main_path(fasta: str, out_dir: str, k: int) -> int:
     return launches
 
 
-def phase_parity(fasta: str, out_dir: str, k: int) -> None:
+def phase_parity(fasta: str, out_dir: str, k: int, extra: tuple = (),
+                 tag: str = "") -> None:
     import torch
 
     from approx_counter_tpu_torch.config.cli import resolve_params
     from approx_counter_tpu_torch.pipeline import run_pipeline
 
-    def argv(tag):
-        return [fasta, "-k", str(k), "-sn", "3000",
-                "-o", f"{out_dir}/p{k}{tag}_out",
-                "-e", f"{out_dir}/p{k}{tag}_exact", "--seed", "5"]
+    stem = f"{out_dir}/p{k}{tag}"
 
+    def argv(dev):
+        return [fasta, "-k", str(k), "-sn", "3000", "-o", f"{stem}{dev}_out",
+                "-e", f"{stem}{dev}_exact", "--seed", "5", *extra]
+
+    what = " ".join([f"-k {k}", *extra])
     rc, stdout = run_cli(argv("gpu"))
     if rc != 0:
-        raise AssertionError(f"GPU CLI -k {k} rc {rc}:\n{stdout}")
+        raise AssertionError(f"GPU CLI {what} rc {rc}:\n{stdout}")
     with contextlib.redirect_stdout(io.StringIO()):
         rc = run_pipeline(resolve_params(argv("cpu")),
                           device=torch.device("cpu"))
     if rc != 0:
-        raise AssertionError(f"CPU run_pipeline -k {k} rc {rc}")
+        raise AssertionError(f"CPU run_pipeline {what} rc {rc}")
+    n_files = 0
     for which in ("start", "end"):
         for kind in ("out", "exact"):
-            paths = [f"{out_dir}/p{k}{d}_{kind}_0.{which}" for d in ("gpu", "cpu")]
+            paths = [f"{stem}{d}_{kind}_0.{which}" for d in ("gpu", "cpu")]
+            if not any(map(os.path.exists, paths)):
+                continue
             a, b = (open(p, "rb").read() for p in paths)
             if a != b:
                 raise AssertionError(f"{paths[0]} != {paths[1]}")
-    log(f"[parity] -k {k} -sn 3000: GPU and CPU exports byte-equal (4 files)")
+            n_files += 1
+    if n_files != (2 if "--from-exact" in extra else 4):
+        raise AssertionError(f"{what}: {n_files} exports")
+    log(f"[parity] {what} -sn 3000: GPU and CPU exports byte-equal "
+        f"({n_files} files)")
 
 
 def phase_gpu_check() -> dict:
@@ -642,6 +669,442 @@ def phase_sort_stage(builds: dict, clock_hz: float) -> tuple[dict, int]:
     return entry, launches
 
 
+
+# the sliced kernel's old limit: 65,535 words of 32 candidates on grid.y
+OLD_LIMIT = 65535 * 32
+LIMIT = dict(C=2_100_000, W=2048, m=101)
+
+
+def phase_limit(builds: dict, clock_hz: float) -> dict:
+    """Phase 8: the sliced NFA past 2,097,120 candidates.  Returns its
+    launches, time and bound."""
+    import torch
+
+    from approx_counter_tpu_torch.kernels import bpm
+
+    rng = np.random.default_rng(23)
+    k, e, C = 16, MAIN["maxerr"], LIMIT["C"]
+    codes, wins_t, valid = random_case(rng, C, LIMIT["W"], LIMIT["m"], k, 17)
+    dev = torch.device("cuda")
+    peq = bpm.build_peq(torch.from_numpy(codes).to(dev), k)
+    args = (torch.from_numpy(wins_t).to(dev), torch.from_numpy(valid).to(dev),
+            k, e)
+
+    def counted(fn):
+        before = bpm.approx_counts.launches
+        out = fn()
+        return out, bpm.approx_counts.launches - before
+
+    got, launches = counted(lambda: bpm.approx_counts(peq, *args))
+    plan = bpm.word_launches(-(-C // 32))
+    if launches != len(plan) or len(plan) < 2:
+        raise AssertionError(f"C={C}: {launches} launches, plan {plan}")
+    rows = np.unique(np.concatenate([
+        rng.choice(C, 1024, replace=False),
+        np.arange(OLD_LIMIT - 1000, OLD_LIMIT + 1000),
+        np.arange(C - 1000, C)]))
+    rows_t = torch.from_numpy(rows).to(dev)
+    err = exact_diff(got[rows_t], bpm.approx_counts_ref(peq[rows_t], *args),
+                     f"nfa_sliced != plain on {len(rows)} rows at C={C}")
+    one, one_launch = counted(
+        lambda: bpm.approx_counts(peq[:OLD_LIMIT], *args))
+    if one_launch != 1:
+        raise AssertionError(f"C={OLD_LIMIT}: {one_launch} launches, want 1")
+    exact_diff(got[:OLD_LIMIT], one,
+               f"{len(plan)} launches != one launch over the first "
+               f"{OLD_LIMIT} candidates")
+    ms = time_ms(lambda: bpm.approx_counts(peq, *args), 3)
+    ops = sass_int_ops_per_step(builds[("nfa_sliced", k, e)].so,
+                                "nfa_sliced", (k, e))
+    bound_ms, bound_by = bound("nfa_sliced", ops, C, 1, clock_hz,
+                               LIMIT["m"], LIMIT["W"])
+    log(f"[limit] C={C} ({C // 32} words) W={LIMIT['W']} m={LIMIT['m']} "
+        f"k=16 maxerr=2: {launches} launches {plan}; kernel == plain on "
+        f"{len(rows)} rows (1,024 random, 2,000 around candidate "
+        f"{OLD_LIMIT}, the last 1,000), first {OLD_LIMIT} == one launch; "
+        f"{ms:.4f} ms (mean of 3 after 2 warm-up), bound {bound_ms:.4f} ms "
+        f"({bound_by}), {C * LIMIT['W'] / ms / 1e9:.4f} T pairs/s")
+    return dict(launches=launches, max_abs_err=err, ms=ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def log_lines(stdout: str) -> list[tuple[str, str, float]]:
+    """(end, text, ms) of every timestamped CLI log line; end is the
+    ``Working on sequence`` end it falls under ("" before the first)."""
+    rows, cur = [], ""
+    for line in stdout.splitlines():
+        mt = re.match(r"\[([0-9.e+]+) ms\]\t+(.*)", line)
+        if not mt:
+            continue
+        text = mt.group(2)
+        me = re.match(r"Working on sequence (start|end)\.", text)
+        if me:
+            cur = me.group(1)
+        rows.append((cur, text, float(mt.group(1))))
+    return rows
+
+
+def per_end_ms(stdout: str, first: str, last: str) -> dict:
+    """Per end, ms from its log line starting with ``first`` to the next
+    one starting with ``last``."""
+    out, t0 = {}, {}
+    for end, text, ms in log_lines(stdout):
+        if text.startswith(first):
+            t0[end] = ms
+        elif text.startswith(last) and end in t0 and end not in out:
+            out[end] = ms - t0[end]
+    return out
+
+
+def per_end_kept(stdout: str) -> dict:
+    return {end: int(text.split()[-1]) for end, text, _ in log_lines(stdout)
+            if text.startswith("Number of kmer kept:")}
+
+
+def read_export(path: str, k: int):
+    """(uint64 codes, int64 counts) of a ``kmer\\tcount`` export."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")[:-1]
+    if not lines:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    lut = np.zeros(256, np.uint64)
+    lut[np.frombuffer(b"CGT", np.uint8)] = [1, 2, 3]
+    bases = lut[np.frombuffer(b"".join(ln[:k] for ln in lines), np.uint8)]
+    codes = np.zeros(len(lines), np.uint64)
+    for i in range(k):
+        codes = (codes << np.uint64(2)) | bases[i::k]
+    counts = np.array(b" ".join(ln[k + 1:] for ln in lines).split(),
+                      dtype=np.int64)
+    return codes, counts
+
+
+def check_compare_count(codes, counts, k: int, what: str) -> None:
+    """Raises unless the rows are in CompareCount order: count descending,
+    then dimer sum ascending, then code descending (unsigned, distinct)."""
+    import torch
+
+    from approx_counter_tpu_torch.core.complexity import dimer_sum
+
+    d = dimer_sum(torch.from_numpy(codes.view(np.int64)).cuda(), k)
+    d = d.cpu().numpy()
+    c, u = counts, codes
+    ok = (c[:-1] > c[1:]) | ((c[:-1] == c[1:]) & (
+        (d[:-1] < d[1:]) | ((d[:-1] == d[1:]) & (u[:-1] > u[1:]))))
+    if not ok.all():
+        i = int(np.argmin(ok))
+        raise AssertionError(f"{what}: rows {i}, {i + 1} out of CompareCount "
+                             f"order ({c[i]}, {d[i]}, {u[i]}) / "
+                             f"({c[i + 1]}, {d[i + 1]}, {u[i + 1]})")
+
+
+def check_top(path: str, adapter: str, n_lines: int) -> None:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if len(lines) != n_lines:
+        raise AssertionError(f"{path}: {len(lines)} lines, want {n_lines}")
+    top = [ln.split("\t")[0] for ln in lines[:5]]
+    if not all(km in adapter for km in top):
+        raise AssertionError(f"{path}: top k-mers {top} are not all from "
+                             f"the planted adapter")
+
+
+ADAPTERS = (("start", START_ADAPTER), ("end", END_ADAPTER))
+
+
+def kernel_at(builds: dict, clock_hz: float, C: int, reps: int,
+              warmup: int) -> tuple[float, float, str]:
+    """(ms, bound ms, what bounds it) of the sliced NFA at C random
+    candidates and the default run's W=40,000, m=101, k=16, maxerr 2."""
+    import torch
+
+    from approx_counter_tpu_torch.kernels.bpm import approx_counts, build_peq
+
+    rng = np.random.default_rng(24)
+    k, e = 16, MAIN["maxerr"]
+    codes, wins_t, valid = random_case(rng, C, MAIN["W"], MAIN["m"], k,
+                                       MAIN["n_invalid"])
+    dev = torch.device("cuda")
+    args = (build_peq(torch.from_numpy(codes).to(dev), k),
+            torch.from_numpy(wins_t).to(dev), torch.from_numpy(valid).to(dev),
+            k, e)
+    ms = time_ms(lambda: approx_counts(*args), reps, warmup)
+    ops = sass_int_ops_per_step(builds[("nfa_sliced", k, e)].so,
+                                "nfa_sliced", (k, e))
+    return (ms, *bound("nfa_sliced", ops, C, 1, clock_hz))
+
+
+def phase_solid(fasta: str, out_dir: str, builds: dict,
+                clock_hz: float) -> dict:
+    """Phase 9: the default run at -sk 20 and -sk 1.  Returns, per N, the
+    kept counts and launches, and the kernel's time and bound at each's
+    start C."""
+    from approx_counter_tpu_torch.kernels.bpm import word_launches
+
+    result = {}
+    for sk in (20, 1):
+        out, exact = f"{out_dir}/sk{sk}_out", f"{out_dir}/sk{sk}_exact"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, stdout = run_cli([fasta, "-sk", str(sk), "-o", out, "-e", exact,
+                              "--seed", "5"])
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["nfa_sliced"]
+        if rc != 0:
+            raise AssertionError(f"CLI -sk {sk} rc {rc}:\n{stdout}")
+        kept = per_end_kept(stdout)
+        plan = {end: len(word_launches(-(-n // 32)))
+                for end, n in kept.items()}
+        if launches != sum(plan.values()):
+            raise AssertionError(f"-sk {sk}: {launches} launches, the plan "
+                                 f"for n_keep {kept} gives {plan}")
+        for which, adapter in ADAPTERS:
+            codes, counts = read_export(f"{exact}_0.{which}", 16)
+            if len(codes) != kept[which] or counts.min() < sk:
+                raise AssertionError(f"-sk {sk} {which}: {len(codes)} exact "
+                                     f"lines (kept {kept[which]}), least "
+                                     f"count {counts.min()}")
+            check_compare_count(codes, counts, 16, f"-sk {sk} exact {which}")
+            check_top(f"{out}_0.{which}", adapter, min(kept[which], 500))
+        walls = end_seconds(stdout)
+        count_ms = per_end_ms(stdout, "Exact k-mer count",
+                              "Number of kmer found")
+        exp_ms = per_end_ms(stdout, "Exporting exact kmer count",
+                            "Approximate k-mer count")
+        app_ms = per_end_ms(stdout, "Exporting approximate count", "Done")
+        log(f"[solid] -sk {sk}: rc 0, n_keep {kept}, launches {launches} "
+            f"(plan {plan}; > {OLD_LIMIT} candidates: "
+            f"{ {e: n > OLD_LIMIT for e, n in kept.items()} }), exact exports "
+            f"n_keep lines >= {sk} in CompareCount order, approx "
+            f"min(n_keep, 500) lines with adapters on top; per-end wall "
+            f"{ {e: round(t, 4) for e, t in walls.items()} } s, whole CLI "
+            f"{wall:.4f} s; split per end (ms): count+score {count_ms}, exact "
+            f"export {exp_ms}, approx export {app_ms}")
+        reps, warmup = (20, 2) if sk == 20 else (1, 1)
+        ms, bound_ms, bound_by = kernel_at(builds, clock_hz, kept["start"],
+                                           reps, warmup)
+        log(f"[solid] kernel at the -sk {sk} start C={kept['start']}, "
+            f"W=40000, m=101: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {kept['start'] * MAIN['W'] / ms / 1e9:.4f} T "
+            f"pairs/s")
+        result[sk] = dict(kept=kept, launches=launches, ms=ms,
+                          bound_ms=bound_ms)
+    return result
+
+
+def same_bytes(a: str, b: str) -> None:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{a} != {b}")
+
+
+def phase_resume(fasta: str, out_dir: str) -> int:
+    """Phase 10: --from-exact on phase 4's warm k=16 exact .start.
+    Returns the launches."""
+    import glob
+
+    out, exact = f"{out_dir}/resume_out", f"{out_dir}/resume_exact"
+    reset_launch_counts()
+    rc, stdout = run_cli([fasta, "--from-exact",
+                          f"{out_dir}/k16_warm_exact_0.start", "-o", out,
+                          "-e", exact, "--seed", "5"])
+    launches = launch_counts()["nfa_sliced"]
+    if rc != 0 or launches != 2:
+        raise AssertionError(f"resume rc {rc}, {launches} launches:\n{stdout}")
+    if glob.glob(f"{exact}*"):
+        raise AssertionError("resume wrote an exact export")
+    same_bytes(f"{out}_0.start", f"{out_dir}/k16_warm_out_0.start")
+    with open(f"{out}_0.end") as f:  # start candidates scored on the ends
+        if len(f.read().splitlines()) != 500:
+            raise AssertionError(f"{out}_0.end: not 500 lines")
+    log(f"[resume] --from-exact (500 codes): rc 0, launches {launches}, no "
+        f"exact export, .start byte-equal to the full run's, .end 500 lines; "
+        f"per-end wall {end_seconds(stdout)} s")
+    return launches
+
+
+# The child samples its resident set (VmRSS) every millisecond while a run
+# lasts: getrusage's ru_maxrss would start from the parent's peak, which
+# execve carries over into the child, and that host's /proc has no VmHWM.
+STREAM_CHILD = r"""
+import contextlib, io, json, sys, threading, time
+import torch
+from approx_counter_tpu_torch.__main__ import main
+big, warm, out = sys.argv[1:4]
+
+def rss():
+    with open("/proc/self/status") as f:
+        return 1024 * int([ln.split()[1] for ln in f
+                           if ln.startswith("VmRSS:")][0])
+
+def cli(argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+def sampled(argv):
+    peak, done = [rss()], threading.Event()
+
+    def watch():
+        while not done.wait(0.001):
+            peak[0] = max(peak[0], rss())
+
+    t = threading.Thread(target=watch)
+    t.start()
+    t0 = time.perf_counter()
+    try:
+        rc, log = cli(argv)
+    finally:
+        wall = time.perf_counter() - t0
+        done.set()
+        t.join()
+    return dict(rc=rc, wall=wall, peak=max(peak[0], rss()), log=log)
+
+torch.zeros(1, device="cuda")
+warm_rc, _ = cli([warm, "--stream", "-o", out + "/warm", "--seed", "5"])
+res = dict(warm_rc=warm_rc)
+for mode in ("stream", "mem"):
+    base = rss()
+    res[mode] = sampled([big, "-o", f"{out}/big_{mode}_out", "-e",
+                         f"{out}/big_{mode}_exact", "--seed", "5"]
+                        + (["--stream"] if mode == "stream" else []))
+    res[mode]["base"] = base
+print(json.dumps(res))
+"""
+
+
+def phase_stream(fasta: str, out_dir: str) -> dict:
+    """Phase 11: stream == in-memory at identity sampling, the 440 MB
+    stream in a child process, native vs Python parse rates."""
+    from approx_counter_tpu_torch.io.fastx import read_fastx, read_fastx_py
+
+    launches = {}
+    for mode in ("mem", "stream"):
+        reset_launch_counts()
+        rc, stdout = run_cli([fasta, "-sn", "60000", "-o",
+                              f"{out_dir}/id_{mode}_out", "-e",
+                              f"{out_dir}/id_{mode}_exact", "--seed", "5"]
+                             + (["--stream"] if mode == "stream" else []))
+        launches[mode] = launch_counts()["nfa_sliced"]
+        if rc != 0 or launches[mode] != 2:
+            raise AssertionError(f"-sn 60000 {mode} rc {rc}:\n{stdout}")
+    for which in ("start", "end"):
+        for kind in ("out", "exact"):
+            same_bytes(f"{out_dir}/id_mem_{kind}_0.{which}",
+                       f"{out_dir}/id_stream_{kind}_0.{which}")
+    log("[stream] --stream -sn 60000 == in-memory -sn 60000 (every read "
+        "eligible): 4 exports byte-equal")
+
+    size = os.path.getsize(fasta)
+    times = {}
+    for name, fn in (("native", read_fastx), ("python", read_fastx_py)):
+        t0 = time.perf_counter()
+        reads = fn(fasta)
+        times[name] = (time.perf_counter() - t0, reads)
+    (t_n, r_n), (t_p, r_p) = times["native"], times["python"]
+    if not (np.array_equal(r_n.buf, r_p.buf)
+            and np.array_equal(r_n.offsets, r_p.offsets)):
+        raise AssertionError("native read_fastx != Python read_fastx")
+    log(f"[parse] {size / 1e6:.1f} MB, {len(r_n)} reads: native "
+        f"{t_n * 1e3:.2f} ms ({size / 1e6 / t_n:.1f} MB/s), Python "
+        f"{t_p * 1e3:.2f} ms ({size / 1e6 / t_p:.1f} MB/s), Reads equal")
+
+    big, warm = f"{out_dir}/big.fasta", f"{out_dir}/warm.fasta"
+    with open(fasta, "rb") as f:
+        data = f.read()
+    with open(big, "wb") as f:
+        for i in range(10):
+            f.write(data.replace(b">read", b">c%d_read" % i))
+    with open(warm, "wb") as f:
+        f.write(data[:data.index(b">read2000\n")])
+    big_size = os.path.getsize(big)
+    proc = subprocess.run([sys.executable, "-c", STREAM_CHILD, big, warm,
+                           out_dir], capture_output=True, text=True,
+                          cwd=REPO, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"stream child rc {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for mode in ("stream", "mem"):
+        if res["warm_rc"] != 0 or res[mode]["rc"] != 0:
+            raise AssertionError(f"{mode} on {big_size} B: {res}")
+        for which, adapter in ADAPTERS:
+            for kind in ("out", "exact"):
+                check_top(f"{out_dir}/big_{mode}_{kind}_0.{which}",
+                          adapter, 500)
+    if "Number of sequences found: 500000." not in res["stream"]["log"]:
+        raise AssertionError("the stream did not count 500,000 reads")
+    pass_ms = per_end_ms(res["stream"]["log"], "Streaming pass",
+                         "Number of sequences found")[""]
+    growth = {m: res[m]["peak"] - res[m]["base"] for m in ("stream", "mem")}
+    if growth["stream"] > big_size / 4:
+        raise AssertionError(f"stream peak RSS grew {growth['stream']} B on "
+                             f"a {big_size} B file")
+    log(f"[stream] {big_size / 1e6:.1f} MB, 500,000 reads, --stream at the "
+        f"default sn: rc 0, 4 x 500 lines, adapters on top; streaming pass "
+        f"{pass_ms:.1f} ms ({big_size / 1e6 / (pass_ms / 1e3):.1f} MB/s), "
+        f"whole CLI {res['stream']['wall']:.3f} s; peak RSS growth "
+        f"{growth['stream'] / 2**20:.1f} MiB over "
+        f"{res['stream']['base'] / 2**20:.1f} MiB (VmRSS sampled each ms); "
+        f"the in-memory run on the same file: "
+        f"{growth['mem'] / 2**20:.1f} MiB, {res['mem']['wall']:.3f} s")
+    return dict(launches=launches["stream"], pass_ms=pass_ms,
+                big_bytes=big_size, growth=growth)
+
+
+def busy_ms(intervals: list, lo: float = -np.inf, hi: float = np.inf) -> float:
+    """ms covered by the union of (start, end) µs intervals clipped to
+    [lo, hi]."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s_, e_ in sorted((max(a, lo), min(b, hi)) for a, b in intervals):
+        if e_ <= s_:
+            continue
+        if cur_e is None or s_ > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def phase_profile(fasta: str, out_dir: str) -> int:
+    """Phase 12: the default run under --profile.  Returns the launches."""
+    prof = f"{out_dir}/profile"
+    out, exact = f"{out_dir}/prof_out", f"{out_dir}/prof_exact"
+    reset_launch_counts()
+    rc, stdout = run_cli([fasta, "-o", out, "-e", exact, "--seed", "5",
+                          "--profile", prof])
+    launches = launch_counts()["nfa_sliced"]
+    if rc != 0 or launches != 2:
+        raise AssertionError(f"--profile rc {rc}, {launches} launches")
+    for which in ("start", "end"):
+        for kind in ("out", "exact"):
+            same_bytes(f"{out_dir}/prof_{kind}_0.{which}",
+                       f"{out_dir}/k16_warm_{kind}_0.{which}")
+    with open(f"{prof}/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    sliced = [e for e in kernels if "nfa_sliced" in e.get("name", "")]
+    if len(sliced) != 2:
+        raise AssertionError(f"trace: {len(sliced)} nfa_sliced kernels")
+    gpu = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ends = {e["name"].split()[0]: (e["ts"], e["ts"] + e["dur"])
+            for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") in ("start pass", "end pass")}
+    shares = {end: f"{busy_ms(gpu, lo, hi):.4f} of {(hi - lo) / 1e3:.4f} ms "
+                   f"({busy_ms(gpu, lo, hi) / ((hi - lo) / 1e3):.1%})"
+              for end, (lo, hi) in sorted(ends.items())}
+    log(f"[profile] --profile: rc 0, exports byte-equal to the unprofiled "
+        f"run, {len(events)} trace events, {len(kernels)} kernels; "
+        f"nfa_sliced {[round(e['dur'] / 1e3, 4) for e in sliced]} ms; device "
+        f"busy {busy_ms(gpu):.4f} ms in all; busy per end pass: {shares}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -658,6 +1121,7 @@ def main() -> int:
     builds = phase_build()
     entries = {"nfa_sliced": phase_kernel(builds, clock_hz)}
     entries.update(phase_alternates(builds, clock_hz))
+    phase_limit(builds, clock_hz)
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "reads.fasta")
         t0 = time.perf_counter()
@@ -668,6 +1132,15 @@ def main() -> int:
         phase_main_path(fasta, tmp, 32)
         for k in (16, 17, 32):
             phase_parity(fasta, tmp, k)
+        phase_parity(fasta, tmp, 16, ("-sk", "2"), "sk2")
+        phase_parity(fasta, tmp, 16, ("--from-exact",
+                                      f"{tmp}/k16_warm_exact_0.start"),
+                     "resume")
+        phase_parity(fasta, tmp, 16, ("--stream",), "stream")
+        phase_solid(fasta, tmp, builds, clock_hz)
+        phase_resume(fasta, tmp)
+        phase_stream(fasta, tmp)
+        phase_profile(fasta, tmp)
     checks = phase_gpu_check()
     for name in ("bpm_myers", "bpm_packed", "nfa_packed"):
         launches[name] = checks[name]

@@ -126,11 +126,7 @@ def test_sample_windows_matches_jax(tmp_path, capsys, end):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--stream"], "--stream"),
-    (["--from-exact", "prior.txt"], "--from-exact"),
     (["--multihost"], "--multihost"),
-    (["-sk", "3"], "-sk"),
-    (["--profile", "trace"], "--profile"),
 ])
 def test_flag_outside_the_port_exits_1(tmp_path, capsys, argv, flag):
     from approx_counter_tpu_torch.config.cli import resolve_params
@@ -142,6 +138,42 @@ def test_flag_outside_the_port_exits_1(tmp_path, capsys, argv, flag):
     err = capsys.readouterr().err
     assert err == f"/!\\ ERROR: {flag} is not yet supported by the PyTorch port\n"
     assert not list(tmp_path.glob("o_*"))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--stream"],
+    ["--from-exact", "prior.txt"],
+    ["-sk", "3"],
+    ["--profile", "trace"],
+], ids=["stream", "from-exact", "sk", "profile"])
+def test_flag_runs_like_jax(tmp_path, capsys, argv):
+    """The flags the port once refused run through ``resolve_params`` and
+    ``run_pipeline`` like the JAX package's (``--profile`` is the CLI's
+    wrapper around the run, so the pipeline ignores it in both)."""
+    from approx_counter_tpu.config.cli import resolve_params as jax_resolve
+    from approx_counter_tpu_torch.config.cli import resolve_params
+
+    fasta = str(tmp_path / "r.fasta")
+    _write_fasta(fasta, 1, 30, 60, 90)
+    (tmp_path / "prior.txt").write_text("ACGTCCTAGCAT\t4\nTTGCAGGATCCA\t2\n")
+    argv = [str(tmp_path / a) if a == "prior.txt" else a for a in argv]
+    results = []
+    for tag, resolve, run in (("jax", jax_resolve, jax_run),
+                              ("torch", resolve_params,
+                               lambda p: run_pipeline(p, device="cpu"))):
+        out = str(tmp_path / f"{tag}_o")
+        rc = run(resolve([fasta, "-k", "12", "-sl", "30", "-sn", "20",
+                          "-lim", "15", "--seed", "3", "-o", out,
+                          "-e", str(tmp_path / f"{tag}_e"), *argv]))
+        cap = capsys.readouterr()
+        files = {p.name[len(tag) + 1:]: p.read_bytes()
+                 for p in sorted(tmp_path.glob(f"{tag}_*"))}
+        results.append((rc, _strip_ms(cap.out), cap.err, files))
+    want, got = results
+    assert got == want
+    assert got[0] == 0
+    assert len(got[3]) == (2 if "--from-exact" in argv else 4)
+    assert not (tmp_path / "trace").exists()
 
 
 @pytest.mark.parametrize("k", [17, 33])
