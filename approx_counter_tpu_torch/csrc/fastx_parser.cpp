@@ -170,8 +170,9 @@ bool parse_fastq(const char *data, size_t n, Handle *h, const char **err) {
 // Incremental (streaming) parsers: parse complete records from a chunk,
 // report consumed bytes so the caller can carry a trailing partial record
 // into the next chunk.  With is_final these match the *streaming* Python
-// iterators in io/stream.py (line-based FASTA record splits, partial
-// trailing records yielded/dropped exactly like _iter_fasta/_iter_fastq) --
+// iterators of approx_counter_tpu/io/stream.py (line-based FASTA record
+// splits, partial trailing records yielded/dropped exactly like
+// _iter_fasta/_iter_fastq there) --
 // note this differs from fastx_parse's bulk EOF quirks by design.
 // ---------------------------------------------------------------------------
 
@@ -221,7 +222,8 @@ bool parse_fasta_inc(const char *data, size_t n, bool is_final, Handle *h,
     return true;
 }
 
-// Streaming multi-line FASTQ; mirrors io/stream.py _iter_fastq exactly:
+// Streaming multi-line FASTQ; mirrors approx_counter_tpu/io/stream.py
+// _iter_fastq exactly:
 // sequence lines accumulate until a '+' line, quality consumed by length,
 // the record counts once the '+' separator is reached; at EOF a record
 // mid-accumulation yields its partial sequence (incl. an unterminated
@@ -333,7 +335,8 @@ extern "C" {
 
 // Parse complete records from data[0..n); *consumed reports how many bytes
 // were used (a trailing partial record is left for the caller to carry).
-// With is_final != 0, EOF semantics match io/stream.py's Python iterators.
+// With is_final != 0, EOF semantics match the Python iterators of
+// approx_counter_tpu/io/stream.py.
 Handle *fastx_parse_chunk(const char *data, int64_t n, int is_final,
                           int64_t *consumed, const char **err) {
     *err = nullptr;

@@ -13,10 +13,9 @@ stream yields the same distribution.  Windows are cut at once (sl bases from
 the start; sl+1 from the end, the reference's off-by-one at :463), so memory
 is O(sn * sl) plus one IO chunk, whatever the file size.
 
-Records arrive in batches (``Reads`` of one IO chunk): plain files through
-the native chunk parser (``io/native.py``), gzip files through the Python
-line iterators ``_iter_fasta`` / ``_iter_fastq``.  The reservoirs take a
-batch at a time, and the seeded draws are those of the JAX package's
+Records arrive in batches (``Reads`` of one IO chunk) from the native chunk
+parser (``io/native.py``), which reads gzip files through ``gzip.open``'s
+decompressed bytes.  The reservoirs take a batch at a time, and the seeded draws are those of the JAX package's
 read-by-read loop: once the reservoirs are full, each eligible read draws
 ``rng.integers(0, n_seen + 1)`` for the start reservoir, then for the end
 one, from one shared generator.  A batch's draws come from one call with an
@@ -35,7 +34,6 @@ from approx_counter_tpu_torch.core.codec import BASE_PAD
 from approx_counter_tpu_torch.io.fastx import (
     InputFormatError,
     Reads,
-    _codes_from_chunks,
     is_gzip,
 )
 from approx_counter_tpu_torch.sample.sampler import WindowBatch, _round_up
@@ -72,88 +70,10 @@ class _Reservoir:
         return WindowBatch(windows=out, n_valid=n_valid)
 
 
-def _iter_fasta(f, chunk_size):
-    """Yield raw sequence bytes per record, streaming."""
-    buf = b""
-    header_seen = False
-    seq_parts: list[bytes] = []
-    while True:
-        chunk = f.read(chunk_size)
-        if not chunk:
-            break
-        buf += chunk
-        lines = buf.split(b"\n")
-        buf = lines.pop()  # tail may be incomplete
-        for line in lines:
-            line = line.rstrip(b"\r")
-            if line.startswith(b">"):
-                if header_seen:
-                    yield b"".join(seq_parts)
-                header_seen = True
-                seq_parts = []
-            elif header_seen:
-                seq_parts.append(line)
-    if buf and not buf.startswith(b">"):
-        seq_parts.append(buf.rstrip(b"\r"))
-    if header_seen:
-        yield b"".join(seq_parts)
-
-
-def _iter_fastq(f, chunk_size):
-    """Streaming FASTQ records, incl. *wrapped* (multi-line) seq/qual:
-    sequence lines accumulate until a '+' separator; quality is consumed
-    by length (total qual length == seq length -- quality may start with
-    '@'/'+', so boundaries are length-driven like SeqAn readRecords).
-    The record is yielded at the '+' separator (a record whose quality is
-    truncated by EOF still counts, matching the native chunk parser)."""
-    buf = b""
-    state = 0  # 0=@hdr 1=seq-accum 2=qual
-    seq_parts: list[bytes] = []
-    need = got = 0
-    while True:
-        chunk = f.read(chunk_size)
-        if not chunk:
-            break
-        buf += chunk
-        lines = buf.split(b"\n")
-        buf = lines.pop()  # tail may be incomplete
-        for line in lines:
-            line = line.rstrip(b"\r")
-            if state == 0:
-                if not line:
-                    continue
-                if not line.startswith(b"@"):
-                    raise InputFormatError("Malformed FASTQ: expected '@' header")
-                seq_parts = []
-                state = 1
-            elif state == 1:
-                if line.startswith(b"+"):
-                    yield b"".join(seq_parts)
-                    need = sum(len(p) for p in seq_parts)
-                    got = 0
-                    state = 2 if need else 0
-                else:
-                    seq_parts.append(line)
-            else:
-                got += len(line)
-                if got >= need:
-                    if got != need:
-                        raise InputFormatError(
-                            "Malformed FASTQ: quality length mismatch"
-                        )
-                    state = 0
-    if state == 1:
-        tail = buf.rstrip(b"\r")
-        if tail.startswith(b"+"):
-            yield b"".join(seq_parts)
-        elif seq_parts or tail:
-            yield b"".join(seq_parts) + tail
-
-
 def _iter_native(f, chunk_size):
     """Yield one ``Reads`` per IO chunk through the native chunk parser
     (record scanning and char translation in C++).  The same records as
-    the Python iterators on well-formed input (tested)."""
+    the JAX package's line iterators (tested)."""
     from approx_counter_tpu_torch.io.native import parse_chunk_native
 
     carry = b""
@@ -171,48 +91,20 @@ def _iter_native(f, chunk_size):
         carry = data[consumed:]
 
 
-def _batched(records, chunk_size):
-    """Group per-record bytes into one ``Reads`` per ~``chunk_size`` bases."""
-    chunks: list[bytes] = []
-    size = 0
-    for rec in records:
-        chunks.append(rec)
-        size += len(rec)
-        if size >= chunk_size:
-            yield _codes_from_chunks(chunks, [len(c) for c in chunks])
-            chunks, size = [], 0
-    if chunks:
-        yield _codes_from_chunks(chunks, [len(c) for c in chunks])
-
-
 def iter_read_batches(path: str, chunk_size: int = 1 << 22):
-    """Stream a FASTA/FASTQ file as ``Reads`` batches of consecutive
-    records: the native chunk parser for plain files, the Python iterators
-    for gzip files."""
-    is_gz = is_gzip(path)
-    with (gzip.open if is_gz else open)(path, "rb") as f:
+    """Stream a FASTA/FASTQ file (gzip transparent) as ``Reads`` batches
+    of consecutive records, one per IO chunk."""
+    with (gzip.open if is_gzip(path) else open)(path, "rb") as f:
         first = f.read(1)
         f.seek(0)
         if not first:
             return
-        if not is_gz and first in (b">", b"@"):
+        if first in (b">", b"@"):
             yield from _iter_native(f, chunk_size)
-        elif first == b">":
-            yield from _batched(_iter_fasta(f, chunk_size), chunk_size)
-        elif first == b"@":
-            yield from _batched(_iter_fastq(f, chunk_size), chunk_size)
         else:
             raise InputFormatError(
                 "Unrecognized sequence file format (expected FASTA or FASTQ)"
             )
-
-
-def iter_read_seqs(path: str, chunk_size: int = 1 << 22):
-    """Stream per-record uint8 *ordinal* arrays from a FASTA/FASTQ file
-    (gzip transparent)."""
-    for batch in iter_read_batches(path, chunk_size):
-        for i in range(len(batch)):
-            yield batch.read(i)
 
 
 def _cut(reads: Reads, idx: np.ndarray, sl: int, end: bool) -> np.ndarray:
@@ -230,18 +122,17 @@ def stream_sample_windows(
     rng: np.random.Generator | None = None,
     pad_to: int = 8,
     chunk_size: int = 1 << 22,
-    pad_rows_to: int | None = None,
     end_is_start: bool = False,
     v: int = 0,
 ):
     """One streaming pass -> (start WindowBatch, end WindowBatch, n_reads).
 
-    Bounded memory: O(sn * sl) plus one IO chunk.  ``pad_rows_to`` forces
-    an exact row count.  ``end_is_start``: the second reservoir samples the
-    START again (an independent draw) -- the ``--compat-quirks`` skip_end
-    bug, where the reference's second pass runs with ``bottom == false``
-    (approx_counter.cpp:943-953).  ``v >= 2``: the per-read short-read
-    stderr warning (approx_counter.cpp:449-457), read id = stream ordinal.
+    Bounded memory: O(sn * sl) plus one IO chunk.  ``end_is_start``: the
+    second reservoir samples the START again (an independent draw) -- the
+    ``--compat-quirks`` skip_end bug, where the reference's second pass
+    runs with ``bottom == false`` (approx_counter.cpp:943-953).  ``v >= 2``:
+    the per-read short-read stderr warning (approx_counter.cpp:449-457),
+    read id = stream ordinal.
     As in the JAX package, this mode warns ONCE per short read per run (one
     streaming walk feeds both reservoirs), walks every read, and numbers
     reads in file order.
@@ -280,17 +171,5 @@ def stream_sample_windows(
             r_start.replace(rows_s[n_fill:], draws[0::2])
             r_end.replace(rows_e[n_fill:], draws[1::2])
         n_seen += len(elig)
-    b_start = r_start.batch(n_seen, pad_to)
-    b_end = r_end.batch(n_seen, pad_to)
-    if pad_rows_to is not None:
-        b_start = _force_rows(b_start, pad_rows_to)
-        b_end = _force_rows(b_end, pad_rows_to)
-    return b_start, b_end, n_reads
+    return r_start.batch(n_seen, pad_to), r_end.batch(n_seen, pad_to), n_reads
 
-
-def _force_rows(batch: WindowBatch, rows: int) -> WindowBatch:
-    if rows < batch.n_valid:
-        raise ValueError(f"cannot fit {batch.n_valid} windows in {rows} rows")
-    out = np.full((rows, batch.windows.shape[1]), BASE_PAD, np.uint8)
-    out[: batch.n_valid] = batch.windows[: batch.n_valid]
-    return WindowBatch(windows=out, n_valid=batch.n_valid)

@@ -7,19 +7,23 @@ compiled the same way by ``g++`` (``host_build``).  The sliced level NFA
 is built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``; the other
 kernels take their sizes (k, maxerr and the pack width, or the stage
 network's rows and stages) as arguments and are built once each.
-Libraries go to
-``build/torch_kernels/`` beside the package, named by a hash of the source,
-the headers of ``csrc/`` and the flags, so a changed source rebuilds and an
-unchanged one is reused; a build writes a temporary file and renames it into
-place, so processes that build the same library at once are safe.  A
-missing compiler or a failed build raises: there is no fallback.
+Libraries go to ``build/torch_kernels/`` beside the package, named by a hash
+of the source, the headers of ``csrc/``, the flags, the compiler's
+``--version``, the machine and its C library: a changed source rebuilds, an
+unchanged one is reused, and a library cached on one host is rebuilt, not
+reused, on a host with another toolchain.  A build writes a temporary file
+and renames it into place, so processes that build the same library at once
+are safe.  A missing compiler or a failed build raises: there is no
+fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -84,21 +88,31 @@ def _gxx() -> str:
     return gxx
 
 
+@functools.lru_cache(maxsize=None)
+def _toolchain(cc: str) -> bytes:
+    """What a library depends on besides its source and flags: the
+    compiler's version, the machine and its C library."""
+    version = subprocess.run([cc, "--version"], capture_output=True,
+                             text=True).stdout
+    return "\n".join([version, platform.machine(),
+                      *platform.libc_ver()]).encode()
+
+
 def _compile(compiler, flags: tuple[str, ...], src: Path,
              stem: str) -> tuple[Path, str, float]:
-    """Build ``src`` with ``compiler()`` (called only when the library is
-    not cached) and ``flags`` into ``BUILD_DIR``; returns (library, the
-    compiler's output, build seconds)."""
+    """Build ``src`` with ``compiler()`` and ``flags`` into ``BUILD_DIR``,
+    or reuse the library built from the same inputs by the same toolchain;
+    returns (library, the compiler's output, build seconds)."""
+    cc = compiler()
     headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(flags).encode()
+        src.read_bytes() + headers + " ".join(flags).encode() + _toolchain(cc)
     ).hexdigest()[:16]
     so = BUILD_DIR / f"{stem}_{digest}.so"
     log_path = so.with_suffix(".log")
     if so.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return so, log, 0.0
-    cc = compiler()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)

@@ -272,11 +272,12 @@ def _launch(fn, tensors, ints) -> None:
 MAX_GRID_Y = 65535
 
 
-def word_launches(n_words: int, max_words: int = MAX_GRID_Y) -> list[tuple[int, int]]:
+def word_launches(n_words: int) -> list[tuple[int, int]]:
     """(first word, word count) of each sliced-NFA launch for ``n_words``
-    32-candidate words: one launch up to ``max_words``, then consecutive
-    slices of at most ``max_words`` words."""
-    return [(w, min(max_words, n_words - w)) for w in range(0, n_words, max_words)]
+    32-candidate words: one launch up to ``MAX_GRID_Y``, then consecutive
+    slices of at most ``MAX_GRID_Y`` words."""
+    return [(w, min(MAX_GRID_Y, n_words - w))
+            for w in range(0, n_words, MAX_GRID_Y)]
 
 
 def approx_counts(peq: torch.Tensor, windows_t: torch.Tensor,

@@ -53,8 +53,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
  11. Stream: --stream -sn 60000 equals the in-memory run at -sn 60000 (every
      read eligible); then, in a child process, --stream at the default sn on
      a 500,000-read, ~440 MB FASTA (the 50,000 reads ten times over): rc 0,
-     4 x 500 lines, adapters on top, the stream's MB/s (from the CLI's log)
-     and the peak RSS growth of the run, against an in-memory run's.  Native
+     4 x 500 lines, adapters on top, the peak RSS growth of the run against
+     an in-memory run's (VmRSS sampled each ms), and the stream's MB/s (from
+     the CLI's log) in one more streamed run without the sampler.  Native
      vs Python ``read_fastx`` MB/s on the 44 MB FASTA, equal ``Reads``.
  12. Profile: the default run with --profile: exports byte-equal to phase
      4's warm run, the trace holds the sliced kernel; device-busy ms and
@@ -925,6 +926,7 @@ def phase_resume(fasta: str, out_dir: str) -> int:
 # The child samples its resident set (VmRSS) every millisecond while a run
 # lasts: getrusage's ru_maxrss would start from the parent's peak, which
 # execve carries over into the child, and that host's /proc has no VmHWM.
+# The stream's MB/s comes from one more streamed run without the sampler.
 STREAM_CHILD = r"""
 import contextlib, io, json, sys, threading, time
 import torch
@@ -969,6 +971,10 @@ for mode in ("stream", "mem"):
                          f"{out}/big_{mode}_exact", "--seed", "5"]
                         + (["--stream"] if mode == "stream" else []))
     res[mode]["base"] = base
+t0 = time.perf_counter()
+rc, log = cli([big, "--stream", "-o", f"{out}/big_plain_out", "-e",
+               f"{out}/big_plain_exact", "--seed", "5"])
+res["plain"] = dict(rc=rc, wall=time.perf_counter() - t0, log=log)
 print(json.dumps(res))
 """
 
@@ -1025,17 +1031,20 @@ def phase_stream(fasta: str, out_dir: str) -> dict:
         raise AssertionError(f"stream child rc {proc.returncode}:\n"
                              f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    for mode in ("stream", "mem"):
+    for mode in ("stream", "mem", "plain"):
         if res["warm_rc"] != 0 or res[mode]["rc"] != 0:
             raise AssertionError(f"{mode} on {big_size} B: {res}")
         for which, adapter in ADAPTERS:
             for kind in ("out", "exact"):
                 check_top(f"{out_dir}/big_{mode}_{kind}_0.{which}",
                           adapter, 500)
-    if "Number of sequences found: 500000." not in res["stream"]["log"]:
-        raise AssertionError("the stream did not count 500,000 reads")
-    pass_ms = per_end_ms(res["stream"]["log"], "Streaming pass",
+    for mode in ("stream", "plain"):
+        if "Number of sequences found: 500000." not in res[mode]["log"]:
+            raise AssertionError("the stream did not count 500,000 reads")
+    pass_ms = per_end_ms(res["plain"]["log"], "Streaming pass",
                          "Number of sequences found")[""]
+    sampled_ms = per_end_ms(res["stream"]["log"], "Streaming pass",
+                            "Number of sequences found")[""]
     growth = {m: res[m]["peak"] - res[m]["base"] for m in ("stream", "mem")}
     if growth["stream"] > big_size / 4:
         raise AssertionError(f"stream peak RSS grew {growth['stream']} B on "
@@ -1043,11 +1052,13 @@ def phase_stream(fasta: str, out_dir: str) -> dict:
     log(f"[stream] {big_size / 1e6:.1f} MB, 500,000 reads, --stream at the "
         f"default sn: rc 0, 4 x 500 lines, adapters on top; streaming pass "
         f"{pass_ms:.1f} ms ({big_size / 1e6 / (pass_ms / 1e3):.1f} MB/s), "
-        f"whole CLI {res['stream']['wall']:.3f} s; peak RSS growth "
+        f"whole CLI {res['plain']['wall']:.3f} s (no sampler); with VmRSS "
+        f"sampled each ms: streaming pass {sampled_ms:.1f} ms, whole CLI "
+        f"{res['stream']['wall']:.3f} s, peak RSS growth "
         f"{growth['stream'] / 2**20:.1f} MiB over "
-        f"{res['stream']['base'] / 2**20:.1f} MiB (VmRSS sampled each ms); "
-        f"the in-memory run on the same file: "
-        f"{growth['mem'] / 2**20:.1f} MiB, {res['mem']['wall']:.3f} s")
+        f"{res['stream']['base'] / 2**20:.1f} MiB; the in-memory run on the "
+        f"same file, sampled: {growth['mem'] / 2**20:.1f} MiB, "
+        f"{res['mem']['wall']:.3f} s")
     return dict(launches=launches["stream"], pass_ms=pass_ms,
                 big_bytes=big_size, growth=growth)
 

@@ -322,24 +322,3 @@ def test_word_launches_cover_the_words(n_words, plan):
     assert sum(n for _, n in got) == n_words
     assert all(a + n == b for (a, n), (b, _) in zip(got, got[1:]))
 
-
-def test_word_launches_small_max_matches_one_launch():
-    """Splitting the words changes no count: the plain version over each
-    slice of candidates equals it over all of them."""
-    from approx_counter_tpu_torch.kernels.bpm import (
-        approx_counts_ref,
-        build_peq,
-        word_launches,
-    )
-
-    rng = np.random.default_rng(8)
-    k, C = 9, 32 * 7
-    codes = torch.from_numpy(rng.integers(0, 1 << (2 * k), C))
-    peq = build_peq(codes, k)
-    wins = torch.from_numpy(rng.integers(0, 6, (30, 50)).astype(np.uint8))
-    valid = torch.ones(50, dtype=torch.bool)
-    whole = approx_counts_ref(peq, wins, valid, k, 2)
-    parts = torch.cat([approx_counts_ref(peq[32 * w:32 * (w + n)], wins,
-                                         valid, k, 2)
-                       for w, n in word_launches(C // 32, max_words=3)])
-    assert torch.equal(parts, whole)

@@ -5,8 +5,9 @@ JAX package, on the CPU.
 same stdout (timestamps stripped) and stderr as the JAX package's for
 FASTA, wrapped FASTA, FASTQ and gzip FASTQ, with reservoir replacement,
 ``-mr``, ``-se --compat-quirks``, short-read warnings and ``--from-exact``.
-Below that: the record stream of the port's iterators and its native chunk
-parser against the JAX package's ``iter_read_seqs``, the reservoir batches
+Below that: the record stream of the port's native chunk parser, on plain
+and gzip files, against the JAX package's line iterators, the reservoir
+batches
 against ``stream_sample_windows``, and the native whole-file parser against
 the JAX package's Python parser.  No tolerance: all compared exactly.
 """
@@ -57,7 +58,7 @@ def _write_fastq(path, seed, n_reads, len_lo, len_hi, wrap=None,
          prm=dict(k=12, sl=40, sn=60, limit=30, v=1, seed=4)),
     dict(fastq=dict(seed=3, n_reads=200, len_lo=60, len_hi=200),
          prm=dict(k=10, sl=30, sn=50, limit=25, v=1, seed=5)),
-    # wrapped gzip FASTQ: the Python iterators
+    # wrapped gzip FASTQ: the native chunk parser on the decompressed bytes
     dict(fastq=dict(seed=4, n_reads=200, len_lo=60, len_hi=200, wrap=50,
                     compress=True),
          prm=dict(k=10, sl=30, sn=50, limit=25, max_error=1, v=1, seed=6)),
@@ -166,26 +167,24 @@ def _long_fastq() -> bytes:
 
 @pytest.mark.parametrize("cs", [1, 3, 17, 4096])
 def test_record_stream_matches_jax(tmp_path, cs):
-    """``tests/test_stream.py:133``: the port's Python iterators and its
-    native chunk parser give the JAX package's record sequence across
-    chunk boundaries (1-byte chunks included) and EOF edge cases."""
+    """``tests/test_stream.py:133``: the port's native chunk parser gives
+    the JAX package's record sequence across chunk boundaries (1-byte
+    chunks included) and EOF edge cases, on plain and gzip files."""
     from approx_counter_tpu.io.fastx import _TRANS
 
     for i, (data, fq) in enumerate(RECORD_CASES + [(_long_fastq(), True)]):
         j_iter = jax_stream._iter_fastq if fq else jax_stream._iter_fasta
         want = [r.translate(_TRANS) for r in j_iter(io.BytesIO(data), cs)]
-        p_iter = stream._iter_fastq if fq else stream._iter_fasta
-        py = [r.translate(_TRANS) for r in p_iter(io.BytesIO(data), cs)]
         native = [batch.read(r).tobytes()
                   for batch in stream._iter_native(io.BytesIO(data), cs)
                   for r in range(len(batch))]
-        assert py == want, (data[:40], cs)
         assert native == want, (data[:40], cs)
-        # whole files, plain (native parser) and gzip (Python iterators)
         for gz in (False, True):
             f = tmp_path / f"c{i}{gz:d}"
             f.write_bytes(gzip.compress(data) if gz else data)
-            got = [r.tobytes() for r in stream.iter_read_seqs(str(f), cs)]
+            got = [batch.read(r).tobytes()
+                   for batch in stream.iter_read_batches(str(f), cs)
+                   for r in range(len(batch))]
             assert got == want, (data[:40], cs, gz)
 
 
@@ -199,7 +198,7 @@ def test_record_stream_errors_match_jax(tmp_path):
             with pytest.raises(ValueError) as want:
                 list(jax_stream.iter_read_seqs(str(f), 3))
             with pytest.raises(ValueError) as got:
-                list(stream.iter_read_seqs(str(f), 3))
+                list(stream.iter_read_batches(str(f), 3))
             if b"xyz" not in data[:3]:
                 assert str(got.value) == str(want.value)
 
@@ -209,21 +208,19 @@ def test_record_stream_errors_match_jax(tmp_path):
 def test_stream_sample_windows_matches_jax(tmp_path, capsys, seed,
                                            end_is_start):
     """Same seed, same batches: reservoir fills, replacement draws shared
-    by the two reservoirs, short-read warnings at v=2, and the forced row
-    count -- over several IO chunk sizes."""
+    by the two reservoirs and short-read warnings at v=2, over several IO
+    chunk sizes."""
     path = tmp_path / "r.fasta"
     _write_fasta(path, 20 + seed, 400, 10, 160, n_frac=0.01)
-    for sn, cs, pad_rows in ((50, 1 << 22, None), (50, 999, 64),
-                             (1000, 4096, None), (0, 1 << 22, None)):
+    for sn, cs in ((50, 1 << 22), (50, 999), (1000, 4096), (0, 1 << 22)):
         want = jax_stream.stream_sample_windows(
             str(path), sn, 30, rng=np.random.default_rng(seed), pad_to=8,
-            chunk_size=cs, pad_rows_to=pad_rows, end_is_start=end_is_start,
-            v=2)
+            chunk_size=cs, end_is_start=end_is_start, v=2)
         want_err = capsys.readouterr().err
         rng = np.random.default_rng(seed)
         got = stream.stream_sample_windows(
             str(path), sn, 30, rng=rng, pad_to=8, chunk_size=cs,
-            pad_rows_to=pad_rows, end_is_start=end_is_start, v=2)
+            end_is_start=end_is_start, v=2)
         assert capsys.readouterr().err == want_err
         assert "Cut size is longer" in want_err
         assert got[2] == want[2] == 400
@@ -316,3 +313,28 @@ def test_parser_build_without_gxx_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         read_fastx(str(f))
     assert list(tmp_path.iterdir()) == [f]
+
+
+def test_build_cache_is_keyed_by_the_toolchain(tmp_path, monkeypatch):
+    """A cached library is reused by the same compiler, machine and C
+    library, and rebuilt under another toolchain, never loaded from a
+    build made elsewhere."""
+    import ctypes
+
+    from approx_counter_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "one.cpp"
+    src.write_text('extern "C" int one() { return 1; }\n')
+
+    def build():
+        return _build._compile(_build._gxx, _build.GXX_FLAGS, src, "one")
+
+    so, _, seconds = build()
+    assert seconds > 0
+    assert build()[0] == so and build()[2] == 0.0
+    monkeypatch.setattr(_build, "_toolchain", lambda cc: b"another host")
+    other, _, seconds = build()
+    assert other != so and seconds > 0
+    assert ctypes.CDLL(str(other)).one() == 1
+    assert len(list((tmp_path / "build").glob("one_*.so"))) == 2
