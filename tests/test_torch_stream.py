@@ -186,6 +186,8 @@ def test_record_stream_matches_jax(tmp_path, cs):
                    for batch in stream.iter_read_batches(str(f), cs)
                    for r in range(len(batch))]
             assert got == want, (data[:40], cs, gz)
+            assert got == [r.tobytes()
+                           for r in jax_stream.iter_read_seqs(str(f), cs)]
 
 
 def test_record_stream_errors_match_jax(tmp_path):
