@@ -5,6 +5,11 @@ Flag-compatible with the reference ``adaptFinder`` binary
 Runs on the first CUDA device; without one it exits 1 and never falls back
 to the CPU.  ``--profile DIR`` records the run with ``torch.profiler`` and
 writes a Chrome trace, ``DIR/trace.json``.
+
+``--multihost`` runs ``dist/multihost.py`` on this rank's card.  Under
+``torchrun`` (``WORLD_SIZE`` > 1) the process group is joined from its
+environment and left on the way out, and each rank's trace is
+``DIR/trace.rank<r>.json``; without that environment the run has one rank.
 """
 
 from __future__ import annotations
@@ -15,11 +20,11 @@ import sys
 
 
 @contextlib.contextmanager
-def profiled(profile_dir: str, device):
+def profiled(profile_dir: str, device, name: str = "trace.json"):
     """``torch.profiler`` over the block when ``profile_dir`` is set (CPU
     activity, and CUDA activity on a CUDA device), its Chrome trace
-    written to ``profile_dir/trace.json`` on the way out, also when the
-    block raises; a plain block otherwise."""
+    written to ``profile_dir/name`` on the way out, also when the block
+    raises; a plain block otherwise."""
     if not profile_dir:
         yield
         return
@@ -41,18 +46,25 @@ def profiled(profile_dir: str, device):
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         prof.stop()
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        prof.export_chrome_trace(os.path.join(profile_dir, name))
 
 
-def run(prm, device) -> int:
-    """``run_pipeline(prm)`` on ``device``, under the profiler when
+def run(prm, device, trace_name: str = "trace.json") -> int:
+    """``run_pipeline(prm)``, or ``run_pipeline_multihost(prm)`` with
+    ``prm.multihost``, on ``device``, under the profiler when
     ``prm.profile_dir`` is set, with a missing file or malformed input
     mapped to exit 1 and its ``/!\\`` message.  Returns the exit code."""
     from approx_counter_tpu_torch.io.fastx import InputFormatError
     from approx_counter_tpu_torch.pipeline import run_pipeline
 
     try:
-        with profiled(prm.profile_dir, device):
+        with profiled(prm.profile_dir, device, trace_name):
+            if prm.multihost:
+                from approx_counter_tpu_torch.dist.multihost import (
+                    run_pipeline_multihost,
+                )
+
+                return run_pipeline_multihost(prm, device=device)
             return run_pipeline(prm, device=device)
     except FileNotFoundError as e:
         sys.stderr.write(f"/!\\ ERROR: COULD NOT OPEN FILE {e.args[0]}\n")
@@ -73,7 +85,19 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         error("no CUDA device: the PyTorch port runs on an NVIDIA GPU")
         return 1
-    return run(prm, torch.device("cuda"))
+    if not prm.multihost:
+        return run(prm, torch.device("cuda"))
+
+    from approx_counter_tpu_torch.dist import mesh
+
+    if int(os.environ.get("WORLD_SIZE", 1)) <= 1:
+        return run(prm, mesh.rank_device())
+    mesh.initialize()
+    try:
+        return run(prm, mesh.rank_device(),
+                   f"trace.rank{mesh.process_index()}.json")
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -89,8 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler Chrome trace of the run to "
                         "DIR/trace.json (extension)")
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="multi-host mode (extension; not yet supported "
-                        "by the PyTorch port)")
+                   help="multi-rank mode: one rank per process under "
+                        "torchrun, the comma-separated input files dealt "
+                        "round-robin to the ranks (extension)")
     p.add_argument("--from-exact", type=str, default=None,
                    help="resume: read candidate k-mers from a prior exact "
                         "export (kmer\\tcount lines) instead of re-counting "

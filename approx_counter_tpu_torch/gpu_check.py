@@ -22,7 +22,9 @@ Checks:
     more candidates than ``limit``, the approximate ranking cut to it);
   * ``Engine.approx_stage``, the resume pass, on an explicit code list
     with a repeated code and more codes than ``limit``, against
-    ``oracle_error_count``.
+    ``oracle_error_count``;
+  * the multihost step, ``dist/mesh.py:full_step`` at world size 1 (k=8,
+    121 valid windows of 512, limit 37), against the oracle pipeline.
 
 Every count is an integer and every comparison exact.  Prints one row per
 check, then ``GPU-CHECK PASS`` or ``GPU-CHECK FAIL (n)``; exits 1 on any
@@ -42,6 +44,7 @@ from approx_counter_tpu_torch.core.complexity import (
     lc_sum_threshold,
 )
 from approx_counter_tpu_torch.count.exact import exact_count_select
+from approx_counter_tpu_torch.dist.mesh import approx_counts_sharded, full_step
 from approx_counter_tpu_torch.kernels.bpm import (
     approx_counts,
     approx_counts_myers,
@@ -167,6 +170,24 @@ def _resume_row(rng, device) -> tuple[str, bool]:
             _pairs(ac, acnt) == ranked and len(codes) > limit)
 
 
+def _mesh_step_row(rng, device) -> tuple[str, bool]:
+    """``dist/mesh.py:full_step`` at world size 1: the multihost
+    orchestrator's step (exact stage, counts through ``approx_counts_sharded``, re-rank)
+    on 121 valid rows of 512, against the oracle."""
+    k, sl, n_valid, limit = 8, 24, 121, 37
+    wins, texts = _pass_windows(rng, k, sl, 512, n_valid)
+    counter, _ = oracle_count_kmers(texts, k, adjust_threshold(1.0, 16, k),
+                                    set())
+    sel = oracle_get_most_frequent(counter, limit, k)
+    ranked = oracle_sort_compare_count(
+        oracle_error_count(texts, [c for c, _ in sel], k), k)[:limit]
+    engine = Engine(Params(k=k, sl=sl, limit=limit, param_lc=1.0), device,
+                    counts=approx_counts_sharded)
+    (ec, ecnt), (ac, acnt), _ = full_step(engine, wins, n_valid)
+    return ("mesh full step (all-reduced counts) vs oracle",
+            _pairs(ec, ecnt) == sel and _pairs(ac, acnt) == ranked)
+
+
 def run(device=torch.device("cuda")) -> list[tuple[str, bool]]:
     """One (name, ok) row per check, on ``device``."""
     device = torch.device(device)
@@ -175,6 +196,7 @@ def run(device=torch.device("cuda")) -> list[tuple[str, bool]]:
     rows.append(_exact_stage_row(rng, device))
     rows += _pass_rows(rng, device)
     rows.append(_resume_row(rng, device))
+    rows.append(_mesh_step_row(rng, device))
     return rows
 
 

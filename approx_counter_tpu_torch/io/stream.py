@@ -91,20 +91,21 @@ def _iter_native(f, chunk_size):
         carry = data[consumed:]
 
 
-def iter_read_batches(path: str, chunk_size: int = 1 << 22):
-    """Stream a FASTA/FASTQ file (gzip transparent) as ``Reads`` batches
-    of consecutive records, one per IO chunk."""
-    with (gzip.open if is_gzip(path) else open)(path, "rb") as f:
-        first = f.read(1)
-        f.seek(0)
-        if not first:
-            return
-        if first in (b">", b"@"):
+def iter_read_batches(paths: str | list[str], chunk_size: int = 1 << 22):
+    """Stream a FASTA/FASTQ file, or several one after another (each plain
+    or gzip), as ``Reads`` batches of consecutive records, one per IO
+    chunk; a batch never spans two files.  Records come in the JAX
+    package's ``iter_read_seqs`` order, file by file."""
+    for path in [paths] if isinstance(paths, str) else paths:
+        with (gzip.open if is_gzip(path) else open)(path, "rb") as f:
+            first = f.read(1)
+            f.seek(0)
+            if not first:
+                continue
+            if first not in (b">", b"@"):
+                raise InputFormatError("Unrecognized sequence file format "
+                                       "(expected FASTA or FASTQ)")
             yield from _iter_native(f, chunk_size)
-        else:
-            raise InputFormatError(
-                "Unrecognized sequence file format (expected FASTA or FASTQ)"
-            )
 
 
 def _cut(reads: Reads, idx: np.ndarray, sl: int, end: bool) -> np.ndarray:

@@ -83,16 +83,32 @@ def build_sliced_planes(peq: torch.Tensor, k: int):
     return bitslice(peq[:, 1] | peq[:, 3]), bitslice(peq[:, 2] | peq[:, 3])
 
 
+#: Windows per block of the plain scan on the CPU: a [C, W] state far
+#: larger than the caches, as at the default run's W, leaves the whole-batch
+#: scan waiting on memory.
+CPU_BLOCK = 256
+
+
 def approx_counts_ref(peq: torch.Tensor, windows_t: torch.Tensor,
                       window_valid: torch.Tensor, k: int,
                       maxerr: int = MAXERR) -> torch.Tensor:
-    """Plain torch version: Myers' bit-vector DP over the text rows.
+    """Plain torch version: Myers' bit-vector DP over the text rows, on the
+    CPU in blocks of ``CPU_BLOCK`` windows (counts are sums over windows).
 
     peq:          int64 [C, 4]
     windows_t:    uint8 [m, W] (transposed windows)
     window_valid: bool [W]
     returns       int32 [C]
     """
+    W = windows_t.shape[1]
+    if peq.device.type == "cpu" and W > CPU_BLOCK:
+        return sum(_myers_scan(peq, windows_t[:, w:w + CPU_BLOCK],
+                               window_valid[w:w + CPU_BLOCK], k, maxerr)
+                   for w in range(0, W, CPU_BLOCK))
+    return _myers_scan(peq, windows_t, window_valid, k, maxerr)
+
+
+def _myers_scan(peq, windows_t, window_valid, k, maxerr):
     C = peq.shape[0]
     m, W = windows_t.shape
     dev = peq.device
@@ -267,17 +283,24 @@ def _launch(fn, tensors, ints) -> None:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
 
 
-#: Most candidate words one sliced-NFA launch takes: the kernel puts the
-#: words on ``grid.y``, which CUDA caps at 65,535 blocks.
+#: Most candidate groups one launch takes: every kernel puts its groups on
+#: ``grid.y``, which CUDA caps at 65,535 blocks.
 MAX_GRID_Y = 65535
+#: Rows of one ``grid.y`` block: ``kCands`` in ``csrc/bpm_myers.cu``,
+#: ``kWords`` in ``csrc/bpm_packed.cu`` and ``csrc/nfa_packed.cu``.
+MYERS_CANDS = 8
+PACKED_WORDS = 8
 
 
-def word_launches(n_words: int) -> list[tuple[int, int]]:
-    """(first word, word count) of each sliced-NFA launch for ``n_words``
-    32-candidate words: one launch up to ``MAX_GRID_Y``, then consecutive
-    slices of at most ``MAX_GRID_Y`` words."""
-    return [(w, min(MAX_GRID_Y, n_words - w))
-            for w in range(0, n_words, MAX_GRID_Y)]
+def word_launches(n_words: int, group: int = 1) -> list[tuple[int, int]]:
+    """(first word, word count) of each launch for ``n_words`` rows of a
+    kernel that takes ``group`` rows per ``grid.y`` block: one launch up to
+    ``MAX_GRID_Y`` groups, then consecutive slices of at most that many.
+    The rows are the sliced NFA's 32-candidate words (group 1), unpacked
+    Myers' candidates (group ``MYERS_CANDS``) and the packed kernels' SWAR
+    words (group ``PACKED_WORDS``)."""
+    step = MAX_GRID_Y * group
+    return [(w, min(step, n_words - w)) for w in range(0, n_words, step)]
 
 
 def approx_counts(peq: torch.Tensor, windows_t: torch.Tensor,
@@ -319,8 +342,10 @@ def approx_counts_myers(peq: torch.Tensor, windows_t: torch.Tensor,
                         window_valid: torch.Tensor, k: int,
                         maxerr: int = MAXERR) -> torch.Tensor:
     """int32 [C] approximate counts by unpacked Myers: ``csrc/bpm_myers.cu``
-    for CUDA tensors, ``approx_counts_ref`` for CPU tensors.
-    ``approx_counts_myers.launches`` counts the kernel launches.
+    for CUDA tensors, ``approx_counts_ref`` for CPU tensors.  Any C: past
+    65,535 groups of 8 (524,280 candidates) the candidates are split over
+    several launches (``word_launches``).  ``approx_counts_myers.launches``
+    counts the kernel launches.
 
     The counterpart of the JAX package's ``approx_counts_pallas``.  Its
     knobs do not carry over: ``ct``/``wt`` size VMEM tiles of the TPU's
@@ -340,11 +365,13 @@ def approx_counts_myers(peq: torch.Tensor, windows_t: torch.Tensor,
 
     from approx_counter_tpu_torch.kernels._build import kernel_build
 
+    peq32 = _as_int32_bits(peq).contiguous()
     out = torch.zeros(C, dtype=torch.int32, device=peq.device)
-    _launch(kernel_build("bpm_myers").lib.bpm_myers,
-            (_as_int32_bits(peq).contiguous(), windows_t, window_valid, out),
-            (C, m, W, k, maxerr))
-    approx_counts_myers.launches += 1
+    fn = kernel_build("bpm_myers").lib.bpm_myers
+    for c0, n in word_launches(C, MYERS_CANDS):
+        _launch(fn, (peq32[c0:c0 + n], windows_t, window_valid,
+                     out[c0:c0 + n]), (n, m, W, k, maxerr))
+        approx_counts_myers.launches += 1
     return out
 
 
@@ -359,8 +386,9 @@ def approx_counts_packed(peq: torch.Tensor, windows_t: torch.Tensor,
     per 32-bit word: ``csrc/bpm_packed.cu`` (``algo="myers"``, pack 2 or 4)
     or ``csrc/nfa_packed.cu`` (``algo="nfa"``, pack 1, 2, 4, 8 or 16) for
     CUDA tensors, ``approx_counts_packed_ref`` for CPU tensors.  k must be
-    at most 32 // pack.  ``approx_counts_packed.launches[algo]`` counts each
-    kernel's launches.
+    at most 32 // pack.  Any C: past 65,535 groups of 8 words the words are
+    split over several launches (``word_launches``).
+    ``approx_counts_packed.launches[algo]`` counts each kernel's launches.
 
     The counterpart of the JAX package's ``approx_counts_pallas_packed``;
     its ``ct``, ``wt``, ``eqsel`` and ``interpret`` do not carry over, for
@@ -382,10 +410,11 @@ def approx_counts_packed(peq: torch.Tensor, windows_t: torch.Tensor,
     words = _as_int32_bits(interleave_peq(peq, pack)).contiguous()
     out = torch.zeros(words.shape[0] * pack, dtype=torch.int32, device=peq.device)
     name = "bpm_packed" if algo == "myers" else "nfa_packed"
-    _launch(getattr(kernel_build(name).lib, name),
-            (words, windows_t, window_valid, out),
-            (words.shape[0], m, W, k, maxerr, pack))
-    approx_counts_packed.launches[algo] += 1
+    fn = getattr(kernel_build(name).lib, name)
+    for w0, n in word_launches(words.shape[0], PACKED_WORDS):
+        _launch(fn, (words[w0:w0 + n], windows_t, window_valid,
+                     out[pack * w0:pack * (w0 + n)]), (n, m, W, k, maxerr, pack))
+        approx_counts_packed.launches[algo] += 1
     return out[:C]
 
 

@@ -45,8 +45,7 @@ class Params:
     compat_quirks: bool = False
     stream: bool = False        # bounded-memory streaming IO
     from_exact: str = ""        # resume from a prior exact export
-    multihost: bool = False     # multi-host mode (JAX package only; not
-    #                             yet supported here)
+    multihost: bool = False     # multi-rank run (dist/multihost.py)
     profile_dir: str = ""       # torch.profiler trace dir (__main__.run)
     max_error: int = 2          # edit-distance bound (reference hardcodes 2
     #                             at compile time, approx_counter.cpp:25)

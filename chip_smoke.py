@@ -25,8 +25,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   5. The CLI at -sn 3000 on the card and ``run_pipeline`` on the CPU, at
      k=16, 17 and 32, and at k=16 with -sk 2, with --from-exact (phase 4's
      warm k=16 exact .start) and with --stream: all exports byte-equal.
-  6. The check path: ``gpu_check.run()`` on the card, every row OK and
-     every approximate-count kernel launched in it.
+  6. The check path: ``gpu_check.run()`` on the card, every row OK (the
+     multihost step's among them) and every approximate-count kernel
+     launched in it.
   7. The bitonic-stage probe's stage network (``csrc/sort_stage.cu``) vs
      its plain version, exact equality: at the probe's shape (int32
      [32768, 128], 210 stages, with and without a tile transpose every 20
@@ -41,7 +42,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      launches), W=2,048, m=101, k=16, maxerr 2, equal to its plain version
      on ~4,000 rows (1,024 at random, the 1,000 on each side of candidate
      2,097,120 and the last 1,000), and its first 2,097,120 counts equal to
-     one launch over those candidates alone; its time and bound.
+     one launch over those candidates alone; its time and bound.  The same
+     for unpacked Myers and the packed NFA at pack 1 at C=530,000 (past
+     65,535 groups of 8, 524,280 candidates), W=512: two launches each.
   9. Solid mode at full size: the default run at -sk 20 and at -sk 1.  The
      exact export holds n_keep lines, every count >= N, in CompareCount
      order; the approximate one min(n_keep, 500), adapters on top; the
@@ -60,12 +63,26 @@ Phases (each raises on failure; the script exits 0 only if all pass):
  12. Profile: the default run with --profile: exports byte-equal to phase
      4's warm run, the trace holds the sliced kernel; device-busy ms and
      each end's busy share of its wall, from the trace.
+ 13. Multihost: the FASTA dealt round-robin into two shard files, then at
+     the default parameters (a) --multihost through the CLI at one rank,
+     cold and warm, exports byte-equal to ``run_pipeline_multihost`` on
+     the CPU; (b) two ranks sharing the card under torchrun (gloo), cold
+     and warm in one process per rank, exports byte-equal to the same two
+     ranks on the CPU; per-end walls from rank 0's log.  (c) At -sn 60000
+     (every read eligible) one rank, two ranks (``torchrun -m
+     approx_counter_tpu_torch --profile``: one trace per rank, two
+     nfa_sliced kernels in each) and --stream on the unsplit file export
+     the same bytes.
 Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and its integer-pipe instructions (the SASS of its text loop,
 from cuobjdump) over 132 SMs x 64 INT32 lanes x the card's maximum SM
 clock; the stage network's counts one min or max per element and stage.
 The last two lines of stdout are one JSON object on the kernels and one
 ``{"ok": true, "device": ...}`` object.
+
+With ``--ranks N`` the script runs only phase 13's check of N ranks under
+torchrun against the same N ranks on the CPU, rank r on card r (NCCL for
+CUDA tensors when every rank has a card), on N shards of the FASTA.
 
 Imports nothing of JAX.  Exits 1 when no CUDA device is present.
 """
@@ -729,6 +746,72 @@ def phase_limit(builds: dict, clock_hz: float) -> dict:
                 bound_by=bound_by)
 
 
+# the alternate kernels' old limit: 65,535 groups of 8 rows on grid.y
+ALT_OLD_LIMIT = 65535 * 8
+ALT_LIMIT = dict(C=530_000, W=512, m=101)
+
+
+def phase_alt_limit(builds: dict, clock_hz: float) -> None:
+    """Phase 8, continued: unpacked Myers and the packed NFA at pack 1 past
+    524,280 candidates (65,535 groups of 8 on ``grid.y``), each equal to its
+    plain version on ~4,000 rows and, on its first 524,280 candidates, to
+    one launch over those alone."""
+    import torch
+
+    from approx_counter_tpu_torch.kernels import bpm
+
+    rng = np.random.default_rng(25)
+    k, e, C = 16, MAIN["maxerr"], ALT_LIMIT["C"]
+    codes, wins_t, valid = random_case(rng, C, ALT_LIMIT["W"], ALT_LIMIT["m"],
+                                       k, 9)
+    dev = torch.device("cuda")
+    peq = bpm.build_peq(torch.from_numpy(codes).to(dev), k)
+    args = (torch.from_numpy(wins_t).to(dev), torch.from_numpy(valid).to(dev),
+            k, e)
+    rows = np.unique(np.concatenate([
+        rng.choice(C, 1024, replace=False),
+        np.arange(ALT_OLD_LIMIT - 1000, ALT_OLD_LIMIT + 1000),
+        np.arange(C - 1000, C)]))
+    rows_t = torch.from_numpy(rows).to(dev)
+    plan = bpm.word_launches(C, bpm.MYERS_CANDS)  # pack 1: a word each
+    cases = {
+        "bpm_myers": (lambda p: bpm.approx_counts_myers(p, *args),
+                      lambda p: bpm.approx_counts_ref(p, *args),
+                      lambda: bpm.approx_counts_myers.launches, ()),
+        "nfa_packed": (lambda p: bpm.approx_counts_packed(p, *args, 1, "nfa"),
+                       lambda p: bpm.approx_counts_packed_ref(p, *args, 1,
+                                                              "nfa"),
+                       lambda: bpm.approx_counts_packed.launches["nfa"],
+                       (1, e)),
+    }
+    for name, (fn, plain, count, targs) in cases.items():
+        before = count()
+        got = fn(peq)
+        launches = count() - before
+        if launches != len(plan) or len(plan) < 2:
+            raise AssertionError(f"{name} C={C}: {launches} launches, plan "
+                                 f"{plan}")
+        exact_diff(got[rows_t], plain(peq[rows_t]),
+                   f"{name} != plain on {len(rows)} rows at C={C}")
+        before = count()
+        one = fn(peq[:ALT_OLD_LIMIT])
+        if count() - before != 1:
+            raise AssertionError(f"{name} C={ALT_OLD_LIMIT}: not one launch")
+        exact_diff(got[:ALT_OLD_LIMIT], one,
+                   f"{name}: {len(plan)} launches != one launch over the "
+                   f"first {ALT_OLD_LIMIT} candidates")
+        ms = time_ms(lambda: fn(peq), 3)
+        ops = sass_int_ops_per_step(builds[(name,)].so, name, targs)
+        bound_ms, bound_by = bound(name, ops, C, 1, clock_hz,
+                                   ALT_LIMIT["m"], ALT_LIMIT["W"])
+        log(f"[limit] {name}{' pack 1' if targs else ''} C={C} "
+            f"W={ALT_LIMIT['W']} m={ALT_LIMIT['m']} k=16 maxerr=2: "
+            f"{launches} launches {plan}; kernel == plain on {len(rows)} rows "
+            f"(1,024 random, 2,000 around candidate {ALT_OLD_LIMIT}, the last "
+            f"1,000), first {ALT_OLD_LIMIT} == one launch; {ms:.4f} ms (mean "
+            f"of 3 after 2 warm-up), bound {bound_ms:.4f} ms ({bound_by})")
+
+
 def log_lines(stdout: str) -> list[tuple[str, str, float]]:
     """(end, text, ms) of every timestamped CLI log line; end is the
     ``Working on sequence`` end it falls under ("" before the first)."""
@@ -1095,12 +1178,24 @@ def phase_profile(fasta: str, out_dir: str) -> int:
         for kind in ("out", "exact"):
             same_bytes(f"{out_dir}/prof_{kind}_0.{which}",
                        f"{out_dir}/k16_warm_{kind}_0.{which}")
-    with open(f"{prof}/trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    sliced = [e for e in kernels if "nfa_sliced" in e.get("name", "")]
+    events, sliced, gpu, shares = read_trace(f"{prof}/trace.json")
     if len(sliced) != 2:
         raise AssertionError(f"trace: {len(sliced)} nfa_sliced kernels")
+    log(f"[profile] --profile: rc 0, exports byte-equal to the unprofiled "
+        f"run, {len(events)} trace events, "
+        f"{sum(e.get('cat') == 'kernel' for e in events)} kernels; "
+        f"nfa_sliced {[round(e['dur'] / 1e3, 4) for e in sliced]} ms; device "
+        f"busy {busy_ms(gpu):.4f} ms in all; busy per end pass: {shares}")
+    return launches
+
+
+def read_trace(path: str):
+    """(events, nfa_sliced kernel events, device intervals, each end pass's
+    device-busy ms of its wall) of a ``--profile`` Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    sliced = [e for e in events if e.get("cat") == "kernel"
+              and "nfa_sliced" in e.get("name", "")]
     gpu = [(e["ts"], e["ts"] + e["dur"]) for e in events
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     ends = {e["name"].split()[0]: (e["ts"], e["ts"] + e["dur"])
@@ -1109,16 +1204,295 @@ def phase_profile(fasta: str, out_dir: str) -> int:
     shares = {end: f"{busy_ms(gpu, lo, hi):.4f} of {(hi - lo) / 1e3:.4f} ms "
                    f"({busy_ms(gpu, lo, hi) / ((hi - lo) / 1e3):.1%})"
               for end, (lo, hi) in sorted(ends.items())}
-    log(f"[profile] --profile: rc 0, exports byte-equal to the unprofiled "
-        f"run, {len(events)} trace events, {len(kernels)} kernels; "
-        f"nfa_sliced {[round(e['dur'] / 1e3, 4) for e in sliced]} ms; device "
-        f"busy {busy_ms(gpu):.4f} ms in all; busy per end pass: {shares}")
-    return launches
+    return events, sliced, gpu, shares
 
 
-def main() -> int:
+# A rank of the two-rank run on the card, started by torchrun: the CLI's
+# --multihost branch (``__main__.main``: join the group, ``run`` on the
+# rank's card, leave) with the run made twice, cold then warm, in one
+# process; ``@RUN@`` in the arguments becomes the run's label.  Rank 0
+# marks each run in its stdout; every rank reports its launches.
+MH_RANK = r"""
+import sys
+import torch
+from approx_counter_tpu_torch.__main__ import run
+from approx_counter_tpu_torch.config.cli import resolve_params
+from approx_counter_tpu_torch.dist import mesh
+from approx_counter_tpu_torch.kernels import bpm
+mesh.initialize()
+rank, rc = mesh.process_index(), 0
+try:
+    for label in ("cold", "warm"):
+        prm = resolve_params([a.replace("@RUN@", label) for a in sys.argv[1:]])
+        if rank == 0:
+            print(f"@@ {label}", flush=True)
+        bpm.approx_counts.launches = 0
+        rc = rc or run(prm, mesh.rank_device())
+        print(f"[rank {rank}] {label} nfa_sliced launches "
+              f"{bpm.approx_counts.launches}", file=sys.stderr, flush=True)
+finally:
+    torch.distributed.destroy_process_group()
+sys.exit(rc)
+"""
+
+# A rank of the two-rank run on the CPU: gloo over localhost.
+MH_CPU_RANK = r"""
+import json, sys
+import torch
+repo, pid, nproc, port, argv = sys.argv[1:6]
+sys.path.insert(0, repo)
+torch.set_num_threads(4)
+from approx_counter_tpu_torch.config.cli import resolve_params
+from approx_counter_tpu_torch.dist import mesh
+from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
+mesh.initialize(f"tcp://127.0.0.1:{port}", int(nproc), int(pid),
+                device_type="cpu", timeout=600)
+try:
+    rc = run_pipeline_multihost(resolve_params(json.loads(argv)),
+                                device="cpu")
+finally:
+    torch.distributed.destroy_process_group()
+sys.exit(rc)
+"""
+
+
+def run_group(cmds: list, timeout: float) -> list[tuple[int, str, str]]:
+    """Runs the commands at once from the repo root, each in a process
+    group of its own, with the repo on ``PYTHONPATH``; returns each one's (rc,
+    stdout, stderr).  Every process group is killed on the way out, so no
+    rank outlives the phase."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=REPO,
+                              env=env, start_new_session=True) for c in cmds]
+    out = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=timeout)
+            out.append((p.returncode, so, se))
+    finally:
+        for p in procs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_fasta(fasta: str, out_dir: str, n: int = 2) -> list[str]:
+    """Deals the records of ``fasta`` (two lines each) round-robin into
+    ``n`` shard files; returns their paths."""
+    with open(fasta, "rb") as f:
+        lines = f.read().split(b"\n")
+    records = [lines[i] + b"\n" + lines[i + 1] + b"\n"
+               for i in range(0, len(lines) - 1, 2)]
+    paths = []
+    for r in range(n):
+        paths.append(f"{out_dir}/shard{r}.fasta")
+        with open(paths[-1], "wb") as f:
+            f.write(b"".join(records[r::n]))
+    return paths
+
+
+def same_exports(a: str, b: str, n_files: int = 4) -> None:
+    """The exports of stems ``a`` and ``b`` (``<stem>_{out,exact}_0.<end>``)
+    are byte-equal, and there are ``n_files`` of each."""
+    n = 0
+    for which in ("start", "end"):
+        for kind in ("out", "exact"):
+            pa, pb = f"{a}_{kind}_0.{which}", f"{b}_{kind}_0.{which}"
+            if os.path.exists(pa) or os.path.exists(pb):
+                same_bytes(pa, pb)
+                n += 1
+    if n != n_files:
+        raise AssertionError(f"{a} / {b}: {n} exports, want {n_files}")
+
+
+def torchrun(nproc: int, *args: str) -> list[str]:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), *args]
+
+
+def multihost_argv(shards: str, out_dir: str, stem: str,
+                   *extra: str) -> list[str]:
+    return [shards, "--multihost", "-o", f"{out_dir}/{stem}_out", "-e",
+            f"{out_dir}/{stem}_exact", "--seed", "5", *extra]
+
+
+def multihost_walls(stdout: str) -> str:
+    """The streaming pass and each end's wall from a multihost run's log."""
+    sample = per_end_ms(stdout, "Streaming pass",
+                        "Number of sequences found")[""]
+    per_end = end_seconds(stdout)
+    return (f"streaming pass {sample:.1f} ms, start end "
+            f"{per_end['start']:.4f} s, end end {per_end['end']:.4f} s")
+
+
+def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
+    """``n`` ranks under torchrun, rank r on cuda:{r % cards}, cold then
+    warm, against the same ``n`` ranks on the CPU (gloo): exports
+    byte-equal.  Returns the warm run's nfa_sliced launches over all
+    ranks."""
     import torch
 
+    cards = torch.cuda.device_count()
+    backend = "nccl" if n <= cards else "gloo"
+    script = f"{out_dir}/mh_rank.py"
+    with open(script, "w") as f:
+        f.write(MH_RANK)
+    stem = f"mh{n}"
+    (rc, stdout, stderr), = run_group(
+        [torchrun(n, script, *multihost_argv(shards, out_dir,
+                                             f"{stem}_@RUN@"))], 600)
+    got = {(int(r), run): int(c) for r, run, c in re.findall(
+        r"\[rank (\d+)\] (cold|warm) nfa_sliced launches (\d+)", stderr)}
+    if rc != 0 or sorted(got.values()) != [2] * (2 * n):
+        raise AssertionError(f"torchrun, {n} ranks: rc {rc}, launches {got}:"
+                             f"\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    runs = dict(re.findall(r"@@ (cold|warm)\n(.*?)(?=@@ |\Z)", stdout, re.S))
+    for label in ("cold", "warm"):
+        log(f"[multihost] {n} ranks on {min(n, cards)} card(s) {label} "
+            f"(torchrun, {backend} for CUDA tensors): rc 0, launches per rank "
+            f"{[got[(r, label)] for r in range(n)]}, "
+            f"{multihost_walls(runs[label])}")
+    port = free_port()
+    t0 = time.perf_counter()
+    results = run_group([[sys.executable, "-c", MH_CPU_RANK, REPO, str(pid),
+                          str(n), str(port),
+                          json.dumps(multihost_argv(shards, out_dir,
+                                                    f"{stem}_cpu"))]
+                         for pid in range(n)], 900)
+    for rc, so, se in results:
+        if rc != 0:
+            raise AssertionError(f"{n} CPU ranks: rc {rc}:\n{se[-3000:]}")
+    same_exports(f"{out_dir}/{stem}_warm", f"{out_dir}/{stem}_cpu")
+    same_exports(f"{out_dir}/{stem}_cold", f"{out_dir}/{stem}_warm")
+    log(f"[multihost] {n} ranks: exports == the same {n} ranks on the CPU "
+        f"(gloo; {time.perf_counter() - t0:.1f} s), 4 files")
+    return sum(got[(r, "warm")] for r in range(n))
+
+
+def phase_multihost(fasta: str, out_dir: str) -> int:
+    """Phase 13: --multihost on the card over two round-robin shards of the
+    FASTA.  Returns the nfa_sliced launches of its warm runs."""
+    import torch
+
+    from approx_counter_tpu_torch.config.cli import resolve_params
+    from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
+
+    shards = ",".join(shard_fasta(fasta, out_dir))
+
+    def argv(stem: str, *extra: str) -> list[str]:
+        return multihost_argv(shards, out_dir, stem, *extra)
+
+    # (a) one rank through the CLI, cold then warm; the CPU at one rank
+    for label in ("cold", "warm"):
+        reset_launch_counts()
+        rc, stdout = run_cli(argv(f"mh1_{label}"))
+        launches = launch_counts()["nfa_sliced"]
+        if rc != 0 or launches != 2:
+            raise AssertionError(f"--multihost, one rank, {label}: rc {rc}, "
+                                 f"{launches} launches:\n{stdout}")
+        log(f"[multihost] one rank {label} (CLI, cuda:0): rc 0, launches "
+            f"{launches}, {multihost_walls(stdout)}")
+    for which, adapter in ADAPTERS:
+        for kind in ("out", "exact"):
+            check_top(f"{out_dir}/mh1_warm_{kind}_0.{which}", adapter, 500)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = run_pipeline_multihost(resolve_params(argv("mh1_cpu")),
+                                    device=torch.device("cpu"))
+    if rc != 0:
+        raise AssertionError(f"run_pipeline_multihost on the CPU: rc {rc}")
+    same_exports(f"{out_dir}/mh1_warm", f"{out_dir}/mh1_cpu")
+    log(f"[multihost] one rank: exports == run_pipeline_multihost(device="
+        f"'cpu') on the same shards (4 files, adapters on top; CPU run "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # (b) two ranks sharing the card under torchrun (gloo)
+    launches += ranks_vs_cpu(2, shards, out_dir)
+
+    # (c) identity sampling: one rank, two ranks (the CLI itself under
+    # torchrun, profiled) and --stream on the unsplit file
+    reset_launch_counts()
+    rc, stdout = run_cli(argv("id1", "-sn", "60000"))
+    id_launches = launch_counts()["nfa_sliced"]
+    if rc != 0 or id_launches != 2:
+        raise AssertionError(f"identity, one rank: rc {rc}, {id_launches}")
+    prof = f"{out_dir}/mh_profile"
+    (rc, so, se), = run_group([torchrun(
+        2, "-m", "approx_counter_tpu_torch", *argv("id2", "-sn", "60000"),
+        "--profile", prof)], 600)
+    if rc != 0:
+        raise AssertionError(f"torchrun -m approx_counter_tpu_torch: rc {rc}"
+                             f"\n{so[-3000:]}\n{se[-3000:]}")
+    traced, busy = {}, {}
+    for r in (0, 1):
+        _, sliced, _, busy[r] = read_trace(f"{prof}/trace.rank{r}.json")
+        traced[r] = len(sliced)
+    if traced != {0: 2, 1: 2}:
+        raise AssertionError(f"per-rank traces: nfa_sliced kernels {traced}")
+    log(f"[multihost] -sn 60000, two ranks on cuda:0 under --profile: device "
+        f"busy per end pass, rank 0 {busy[0]}, rank 1 {busy[1]}")
+    reset_launch_counts()
+    rc, stdout = run_cli([fasta, "--stream", "-sn", "60000", "-o",
+                          f"{out_dir}/idst_out", "-e", f"{out_dir}/idst_exact",
+                          "--seed", "5"])
+    if rc != 0 or launch_counts()["nfa_sliced"] != 2:
+        raise AssertionError(f"identity --stream: rc {rc}")
+    same_exports(f"{out_dir}/id1", f"{out_dir}/id2")
+    same_exports(f"{out_dir}/id1", f"{out_dir}/idst")
+    log(f"[multihost] -sn 60000 (every read eligible): one rank, two ranks "
+        f"(torchrun -m approx_counter_tpu_torch --profile: nfa_sliced kernels "
+        f"per rank trace {traced}) and --stream on the unsplit file: 4 "
+        f"exports byte-equal")
+    return launches + id_launches
+
+
+def main_ranks(n: int) -> int:
+    """``--ranks N``: phase 13 (b) alone at N ranks, one card each."""
+    import torch
+
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"--ranks {n}: {torch.cuda.device_count()} "
+                             f"cards")
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "reads.fasta")
+        write_fasta(fasta, 50000, seed=5)
+        launches = ranks_vs_cpu(n, ",".join(shard_fasta(fasta, tmp, n)), tmp)
+    log(f"[multihost] --ranks {n}: nfa_sliced launches {launches}")
+    return 0
+
+
+def ok_line() -> str:
+    import torch
+
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run only phase 13's ranks-vs-CPU check at N ranks, "
+                         "one card each")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1126,13 +1500,26 @@ def main() -> int:
 
     log(card_line())
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} card(s)")
+    if args.ranks:
+        from approx_counter_tpu_torch.kernels._build import (
+            host_build,
+            nfa_sliced_build,
+        )
+
+        nfa_sliced_build(16, MAIN["maxerr"])
+        host_build("fastx_parser")
+        main_ranks(args.ranks)
+        print(ok_line())
+        return 0
     clock_hz = max_sm_clock_hz()
     log(f"[env] max SM clock {clock_hz / 1e6:g} MHz")
     builds = phase_build()
     entries = {"nfa_sliced": phase_kernel(builds, clock_hz)}
     entries.update(phase_alternates(builds, clock_hz))
     phase_limit(builds, clock_hz)
+    phase_alt_limit(builds, clock_hz)
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "reads.fasta")
         t0 = time.perf_counter()
@@ -1152,6 +1539,7 @@ def main() -> int:
         phase_resume(fasta, tmp)
         phase_stream(fasta, tmp)
         phase_profile(fasta, tmp)
+        launches["nfa_sliced"] += phase_multihost(fasta, tmp)
     checks = phase_gpu_check()
     for name in ("bpm_myers", "bpm_packed", "nfa_packed"):
         launches[name] = checks[name]
@@ -1163,10 +1551,7 @@ def main() -> int:
          **entries[name], "library_ms": None}
         for name in KERNELS
     ]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print(ok_line())
     return 0
 
 

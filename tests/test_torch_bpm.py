@@ -60,6 +60,22 @@ def test_approx_counts_ref_matches_jnp(jbpm, k, maxerr):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("W", [257, 700])
+def test_approx_counts_ref_blocks_match_jnp(jbpm, W):
+    """Past ``CPU_BLOCK`` windows the CPU scan runs in blocks; invalid
+    windows straddle a block boundary."""
+    assert bpm.CPU_BLOCK < W
+    k = 16
+    hi, lo, wins_t, valid = _case(W, k, C=24, W=W, m=30)
+    valid[bpm.CPU_BLOCK - 3:bpm.CPU_BLOCK + 2] = False
+    want = np.asarray(jbpm.approx_counts_jnp(
+        jbpm.build_peq(hi, lo, k), wins_t, valid, k, maxerr=2))
+    got = bpm.approx_counts_ref(*_torch_inputs(hi, lo, wins_t, valid, k), k)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 0
+
+
 @pytest.mark.parametrize("k", [2, 16, 32])
 @pytest.mark.parametrize("maxerr", [2, 3])
 def test_approx_counts_matches_pallas_sliced_interpret(jbpm, k, maxerr):

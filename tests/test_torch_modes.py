@@ -10,6 +10,7 @@ tolerance: everything is compared byte for byte.
 import json
 import os
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -262,17 +263,25 @@ def test_parse_exact_export_matches_jax(tmp_path):
         parse_exact_export(str(tmp_path / "n.txt"), 4)
 
 
-def test_missing_resume_file_names_it(tmp_path, capsys):
-    """A missing ``--from-exact`` file exits 1 naming the file (the JAX
-    package's CLI prints the errno, 2, in its place)."""
+def test_missing_resume_file_names_it(tmp_path, capsys, monkeypatch):
+    """A missing ``--from-exact`` file exits 1 with the JAX package's CLI
+    stderr byte for byte: the errno that ``open`` raises, 2, where the file
+    name might be expected."""
+    from approx_counter_tpu.__main__ import main as jax_main
+    from approx_counter_tpu_torch.config.cli import resolve_params
+
+    monkeypatch.setenv("APPROX_COUNTER_CACHE", "off")
     fasta = tmp_path / "reads.fasta"
     _write_fasta(fasta, 1, 8, 60, 60)
-    missing = tmp_path / "missing.txt"
-    prm = Params(input_file=str(fasta), output=str(tmp_path / "o"),
-                 from_exact=str(missing), k=9, sl=20, v=0)
-    assert torch_cli_run(prm, "cpu") == 1
-    assert capsys.readouterr().err == (
-        f"/!\\ ERROR: COULD NOT OPEN FILE {missing}\n")
+    argv = [str(fasta), "-o", str(tmp_path / "o"), "--from-exact",
+            str(tmp_path / "missing.txt"), "-k", "9", "-sl", "20", "-v", "0"]
+    assert jax_main(argv) == 1
+    want = capsys.readouterr()
+    assert torch_cli_run(resolve_params(argv), "cpu") == 1
+    got = capsys.readouterr()
+    assert (got.out, got.err) == (want.out, want.err)
+    assert got.err == "/!\\ ERROR: COULD NOT OPEN FILE 2\n"
+    assert not list(tmp_path.glob("o_*"))
 
 
 # --- profile ----------------------------------------------------------------
@@ -321,4 +330,50 @@ def test_word_launches_cover_the_words(n_words, plan):
     assert all(0 < n <= MAX_GRID_Y for _, n in got)
     assert sum(n for _, n in got) == n_words
     assert all(a + n == b for (a, n), (b, _) in zip(got, got[1:]))
+
+
+# --- the alternate kernels' launch plan -------------------------------------
+
+
+@pytest.mark.parametrize("rows,plan", [
+    (1, [(0, 1)]),
+    (500, [(0, 500)]),
+    (524280, [(0, 524280)]),  # Myers C = 524,280: one launch, as before
+    (524281, [(0, 524280), (524280, 1)]),
+    (530000, [(0, 524280), (524280, 5720)]),  # C = 530,000
+    (2 * 524280 + 9, [(0, 524280), (524280, 524280), (1048560, 9)]),
+])
+def test_group_launches_cover_the_rows(rows, plan):
+    """``word_launches`` with 8 rows a ``grid.y`` block, as the unpacked
+    Myers kernel takes its candidates and the packed kernels their words:
+    every launch holds at most 65,535 whole groups, and the launches tile
+    the rows in order."""
+    from approx_counter_tpu_torch.kernels.bpm import (
+        MAX_GRID_Y,
+        MYERS_CANDS,
+        PACKED_WORDS,
+        word_launches,
+    )
+
+    assert MYERS_CANDS == PACKED_WORDS == 8
+    got = word_launches(rows, MYERS_CANDS)
+    assert got == plan
+    assert all(-(-n // MYERS_CANDS) <= MAX_GRID_Y for _, n in got)
+    assert all(a % MYERS_CANDS == 0 for a, _ in got)
+    assert sum(n for _, n in got) == rows
+    assert all(a + n == b for (a, n), (b, _) in zip(got, got[1:]))
+
+
+@pytest.mark.parametrize("name,const", [("bpm_myers.cu", "kCands"),
+                                        ("bpm_packed.cu", "kWords"),
+                                        ("nfa_packed.cu", "kWords")])
+def test_group_size_matches_the_kernel_source(name, const):
+    """The wrappers' group size is the rows a block of the kernel takes."""
+    from approx_counter_tpu_torch.kernels.bpm import MYERS_CANDS, PACKED_WORDS
+
+    src = (Path(__file__).resolve().parents[1] / "approx_counter_tpu_torch"
+           / "csrc" / name).read_text()
+    n = int(re.search(rf"constexpr int {const} = (\d+);", src).group(1))
+    assert n == (MYERS_CANDS if const == "kCands" else PACKED_WORDS)
+    assert "groups > 65535" in src  # the one-launch limit the plan serves
 

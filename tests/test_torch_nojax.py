@@ -2,7 +2,8 @@
 
 A subprocess blocks ``jax`` and the JAX package (``sys.modules[name] =
 None`` makes their import fail), imports every module of
-``approx_counter_tpu_torch`` and runs a tiny ``run_pipeline`` on the CPU.
+``approx_counter_tpu_torch`` (the three of ``dist/`` among them) and runs a
+tiny ``run_pipeline`` and ``run_pipeline_multihost`` on the CPU.
 It guards against an import chain such as the JAX package's
 ``io/fastx.py`` -> ``core/__init__.py`` -> ``core/complexity.py`` ->
 ``jax.numpy``.
@@ -28,6 +29,10 @@ SCRIPT = textwrap.dedent(r"""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    dist = {"approx_counter_tpu_torch.dist." + m
+            for m in ("sampling", "mesh", "multihost")}
+    assert dist <= set(names), sorted(dist - set(names))
+    from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
     from approx_counter_tpu_torch.params import Params
     from approx_counter_tpu_torch.pipeline import run_pipeline
     tmp = sys.argv[1]
@@ -39,6 +44,9 @@ SCRIPT = textwrap.dedent(r"""
                  v=0, seed=1)
     assert run_pipeline(prm, device="cpu") == 0
     assert os.path.getsize(os.path.join(tmp, "o_0.start")) > 0
+    prm.output, prm.multihost = os.path.join(tmp, "mh"), True
+    assert run_pipeline_multihost(prm, device="cpu") == 0
+    assert os.path.getsize(os.path.join(tmp, "mh_0.start")) > 0
     leaked = [m for m in sys.modules
               if m.startswith(("jax.", "approx_counter_tpu."))]
     assert sys.modules["jax"] is None, "jax was imported"

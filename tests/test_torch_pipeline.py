@@ -125,21 +125,6 @@ def test_sample_windows_matches_jax(tmp_path, capsys, end):
         np.testing.assert_array_equal(got.windows, want.windows)
 
 
-@pytest.mark.parametrize("argv,flag", [
-    (["--multihost"], "--multihost"),
-])
-def test_flag_outside_the_port_exits_1(tmp_path, capsys, argv, flag):
-    from approx_counter_tpu_torch.config.cli import resolve_params
-
-    _write_fasta(tmp_path / "r.fasta", 1, 8, 60, 60)
-    prm = resolve_params([str(tmp_path / "r.fasta"), "-o",
-                          str(tmp_path / "o"), *argv])
-    assert run_pipeline(prm, device="cpu") == 1
-    err = capsys.readouterr().err
-    assert err == f"/!\\ ERROR: {flag} is not yet supported by the PyTorch port\n"
-    assert not list(tmp_path.glob("o_*"))
-
-
 @pytest.mark.parametrize("argv", [
     ["--stream"],
     ["--from-exact", "prior.txt"],
