@@ -20,11 +20,12 @@ import sys
 
 
 @contextlib.contextmanager
-def profiled(profile_dir: str, device, name: str = "trace.json"):
+def profiled(profile_dir: str, device):
     """``torch.profiler`` over the block when ``profile_dir`` is set (CPU
     activity, and CUDA activity on a CUDA device), its Chrome trace
-    written to ``profile_dir/name`` on the way out, also when the block
-    raises; a plain block otherwise."""
+    written on the way out, also when the block raises: to
+    ``profile_dir/trace.json``, or ``profile_dir/trace.rank<r>.json`` in a
+    process group; a plain block otherwise."""
     if not profile_dir:
         yield
         return
@@ -46,10 +47,13 @@ def profiled(profile_dir: str, device, name: str = "trace.json"):
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         prof.stop()
+        name = "trace.json"
+        if torch.distributed.is_initialized():
+            name = f"trace.rank{torch.distributed.get_rank()}.json"
         prof.export_chrome_trace(os.path.join(profile_dir, name))
 
 
-def run(prm, device, trace_name: str = "trace.json") -> int:
+def run(prm, device) -> int:
     """``run_pipeline(prm)``, or ``run_pipeline_multihost(prm)`` with
     ``prm.multihost``, on ``device``, under the profiler when
     ``prm.profile_dir`` is set, with a missing file or malformed input
@@ -58,7 +62,7 @@ def run(prm, device, trace_name: str = "trace.json") -> int:
     from approx_counter_tpu_torch.pipeline import run_pipeline
 
     try:
-        with profiled(prm.profile_dir, device, trace_name):
+        with profiled(prm.profile_dir, device):
             if prm.multihost:
                 from approx_counter_tpu_torch.dist.multihost import (
                     run_pipeline_multihost,
@@ -94,8 +98,7 @@ def main(argv: list[str] | None = None) -> int:
         return run(prm, mesh.rank_device())
     mesh.initialize()
     try:
-        return run(prm, mesh.rank_device(),
-                   f"trace.rank{mesh.process_index()}.json")
+        return run(prm, mesh.rank_device())
     finally:
         torch.distributed.destroy_process_group()
 

@@ -12,7 +12,8 @@ rank is one process on one card (or on the CPU):
     ``all_reduce`` on the device tensor;
   * ``full_step`` all-gathers the ranks' window shards (host uint8) and runs
     the exact stage on the whole batch on every rank, then scores its own
-    shard.  The JAX step leaves the exact stage to XLA's auto-SPMD over the
+    shard.  The ``--from-exact`` step is ``Engine.approx_stage`` of an
+    engine that scores with ``approx_counts_sharded``.  The JAX step leaves the exact stage to XLA's auto-SPMD over the
     global array; torch has no such thing, and a replicated exact stage
     gives the same bytes, since counting does not depend on the window
     order.  It costs every rank the whole exact stage.
@@ -46,13 +47,32 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def rank_device() -> torch.device:
-    """This rank's card, ``cuda:{LOCAL_RANK % device_count}``.  Raises when
+def cuda_layout(env, n_dev: int, process_id: int | None = None,
+                num_processes: int | None = None) -> tuple[int, str]:
+    """(card index, backend) of a rank on a host with ``n_dev`` cards.  The
+    local rank and the ranks on the host are ``torchrun``'s ``LOCAL_RANK``
+    and ``LOCAL_WORLD_SIZE`` in ``env``, else ``process_id`` and
+    ``num_processes`` (ranks started by hand, all on this host), else rank 0
+    of ``WORLD_SIZE``.  CUDA tensors go over NCCL when every rank of the
+    host has a card of its own, over gloo when ranks share one (NCCL
+    refuses two ranks on one device); CPU tensors always over gloo."""
+    local_rank = int(env.get("LOCAL_RANK", process_id or 0))
+    local_size = int(env.get("LOCAL_WORLD_SIZE", num_processes
+                             or env.get("WORLD_SIZE", 1)))
+    backend = "cpu:gloo,cuda:nccl" if local_size <= n_dev else "gloo"
+    return local_rank % n_dev, backend
+
+
+def rank_device(process_id: int | None = None) -> torch.device:
+    """This rank's card, ``cuda:{local rank % device_count}`` (``cuda_layout``;
+    ``process_id`` defaults to the rank in the process group).  Raises when
     the host has no CUDA device."""
     n_dev = torch.cuda.device_count()
     if not torch.cuda.is_available() or n_dev == 0:
         raise RuntimeError("no CUDA device for this rank")
-    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % n_dev)
+    if process_id is None:
+        process_id = process_index()
+    return torch.device("cuda", cuda_layout(os.environ, n_dev, process_id)[0])
 
 
 def initialize(coordinator_address: str | None = None,
@@ -61,10 +81,10 @@ def initialize(coordinator_address: str | None = None,
                timeout: float | None = None) -> None:
     """Join the process group, from ``torchrun``'s environment by default
     or from the JAX ``initialize``'s arguments (``coordinator_address`` as
-    ``tcp://host:port``).  The backend follows from the devices: CPU
-    tensors go over gloo; CUDA tensors over NCCL when every local rank has
-    its own card, over gloo when ranks share one (NCCL refuses two ranks on
-    one device).  A failed init raises; nothing is retried."""
+    ``tcp://host:port``; the ranks are taken to share this host).  On
+    ``cuda`` the rank's card and the backend follow from ``cuda_layout``;
+    on ``cpu`` the backend is gloo.  A failed init raises; nothing is
+    retried."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["init_method"] = coordinator_address
@@ -76,11 +96,9 @@ def initialize(coordinator_address: str | None = None,
         kwargs["timeout"] = datetime.timedelta(seconds=timeout)
     backend = "gloo"
     if device_type == "cuda":
-        device = rank_device()
-        local = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes
-                                   or os.environ.get("WORLD_SIZE", 1)))
-        if local <= torch.cuda.device_count():
-            backend = "cpu:gloo,cuda:nccl"
+        device = rank_device(process_id or 0)
+        backend = cuda_layout(os.environ, torch.cuda.device_count(),
+                              process_id, num_processes)[1]
         torch.cuda.set_device(device)
     elif device_type != "cpu":
         raise ValueError(f"ranks run on cuda or cpu, not {device_type}")
@@ -124,11 +142,3 @@ def full_step(engine, windows: np.ndarray, n_valid: int):
     if process_count() > 1:
         exact_batch = gather_windows(windows, n_valid)
     return engine.count_one_end(windows, n_valid, exact_batch)
-
-
-def approx_step(engine, windows: np.ndarray, n_valid: int,
-                codes: np.ndarray):
-    """The ``--from-exact`` step (port of ``make_approx_step``): the uint64
-    ``codes`` scored over every rank's windows and re-ranked, with no exact
-    stage -> host uint64 (codes, counts) cut to ``limit``."""
-    return engine.approx_stage(windows, n_valid, codes)

@@ -36,7 +36,6 @@ import torch
 
 from approx_counter_tpu_torch.dist.mesh import (
     approx_counts_sharded,
-    approx_step,
     full_step,
     process_count,
     process_index,
@@ -157,8 +156,11 @@ def run_pipeline_multihost(prm, log: Log | None = None, *, device) -> int:
                     log("Exact k-mer count", tab_level)
                 t_count = time.perf_counter()
                 if resume_codes is not None:
-                    approx_sel = approx_step(engine, batch.windows,
-                                             batch.n_valid, resume_codes)
+                    # the --from-exact step: the codes scored over every
+                    # rank's windows (engine.counts all-reduces), no exact
+                    # stage
+                    approx_sel = engine.approx_stage(
+                        batch.windows, batch.n_valid, resume_codes)
                     exact_sel = (resume_codes,
                                  np.zeros(len(resume_codes), np.uint64))
                     stats = dict(n_unique=len(resume_codes),
@@ -179,7 +181,7 @@ def run_pipeline_multihost(prm, log: Log | None = None, *, device) -> int:
                 ok = report_and_export_end(
                     prm, log, mr_v, tab_level, run_suffix, which_end, stats,
                     exact_sel, approx_sel, resume=resume_codes is not None,
-                    do_export=is_host0, do_warn=is_host0,
+                    is_host0=is_host0,
                 )
             if pc > 1:
                 # only rank 0 can fail an export; every rank must take the

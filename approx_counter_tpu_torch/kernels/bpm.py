@@ -118,17 +118,38 @@ def _myers_scan(peq, windows_t, window_valid, k, maxerr):
     VN = torch.zeros((C, W), dtype=torch.int64, device=dev)
     score = torch.full((C, W), k, dtype=torch.int64, device=dev)
     minsc = score.clone()
+    # every step in place: on the CPU a step's [C, W] temporaries cost more
+    # than its arithmetic
+    Xv, Xh, Ph, Mh, bit = (torch.empty_like(VP) for _ in range(5))
+    rows = windows_t.to(torch.int64)
     for j in range(m):
-        Eq = peq6.index_select(1, windows_t[j].to(torch.int64))
-        Xv = Eq | VN
-        Xh = ((((Eq & VP) + VP) & _M32) ^ VP) | Eq
-        Ph = VN | (~(Xh | VP) & _M32)
-        Mh = VP & Xh
-        score += ((Ph >> (k - 1)) & 1) - ((Mh >> (k - 1)) & 1)
-        Ph = (Ph << 1) & _M32
-        Mh = (Mh << 1) & _M32
-        VP = Mh | (~(Xv | Ph) & _M32)
-        VN = Ph & Xv
+        Eq = peq6.index_select(1, rows[j])
+        torch.bitwise_or(Eq, VN, out=Xv)
+        # Xh = ((((Eq & VP) + VP) & M32) ^ VP) | Eq
+        torch.bitwise_and(Eq, VP, out=Xh)
+        Xh += VP
+        Xh &= _M32
+        Xh ^= VP
+        Xh |= Eq
+        # Ph = VN | (~(Xh | VP) & M32);  Mh = VP & Xh
+        torch.bitwise_or(Xh, VP, out=Ph).bitwise_not_()
+        Ph &= _M32
+        Ph |= VN
+        torch.bitwise_and(VP, Xh, out=Mh)
+        # score += bit k-1 of Ph - bit k-1 of Mh
+        torch.bitwise_right_shift(Ph, k - 1, out=bit)
+        score += bit.bitwise_and_(1)
+        torch.bitwise_right_shift(Mh, k - 1, out=bit)
+        score -= bit.bitwise_and_(1)
+        Ph <<= 1
+        Ph &= _M32
+        Mh <<= 1
+        Mh &= _M32
+        # VP = Mh | (~(Xv | Ph) & M32);  VN = Ph & Xv
+        torch.bitwise_or(Xv, Ph, out=VP).bitwise_not_()
+        VP &= _M32
+        VP |= Mh
+        torch.bitwise_and(Ph, Xv, out=VN)
         torch.minimum(minsc, score, out=minsc)
     contrib = (maxerr + 1 - minsc).clamp_(min=0) * window_valid[None, :]
     return contrib.sum(dim=1).to(torch.int32)

@@ -100,14 +100,14 @@ def had_n_warning(had_n: int) -> None:
 def report_and_export_end(prm, log, mr_v: int, tab_level: int,
                           run_suffix: str, which_end: str, stats: dict,
                           exact_sel, approx_sel, resume: bool,
-                          do_export: bool = True,
-                          do_warn: bool = True) -> bool:
+                          is_host0: bool = True) -> bool:
     """Per-end tail of the reference main loop (approx_counter.cpp:874-934):
     had_n warning, selection log lines, exact + approx export (no exact
     export when ``resume``).  Returns False after an export failure (the
-    caller exits 1).  ``do_export``/``do_warn`` are False on the multihost
-    orchestrator's ranks other than 0, whose ``mr_v`` is muted too."""
-    if do_warn:
+    caller exits 1).  ``is_host0`` is False on the multihost orchestrator's
+    ranks other than 0, which neither warn nor export (their ``mr_v`` is
+    muted too)."""
+    if is_host0:
         had_n_warning(stats["had_n"])
     if mr_v > 0:
         log(f"Number of kmer found: {stats['n_unique']}", tab_level)
@@ -121,7 +121,7 @@ def report_and_export_end(prm, log, mr_v: int, tab_level: int,
         if mr_v > 0:
             log("Exporting exact kmer count", tab_level)
         path = prm.exact_out + run_suffix + "." + which_end
-        if do_export and not export_counter(exact_codes, exact_counts,
+        if is_host0 and not export_counter(exact_codes, exact_counts,
                                             prm.k, path):
             error("Failed to export exact k-mer count")
             sys.stderr.write(f"Path: {path}\n")
@@ -135,7 +135,7 @@ def report_and_export_end(prm, log, mr_v: int, tab_level: int,
         log("Starting approximate counting", tab_level)
         log("Exporting approximate count", tab_level)
     path = prm.output + run_suffix + "." + which_end
-    if do_export and not export_counter(approx_codes, approx_counts_, prm.k,
+    if is_host0 and not export_counter(approx_codes, approx_counts_, prm.k,
                                         path):
         error("Failed to export approximate k-mer count")
         sys.stderr.write(f"Path: {path}\n")

@@ -74,11 +74,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      nfa_sliced kernels in each) and --stream on the unsplit file export
      the same bytes.
 Each approximate-count kernel's bound is the larger of its bytes over the
-memory rate and its integer-pipe instructions (the SASS of its text loop,
-from cuobjdump) over 132 SMs x 64 INT32 lanes x the card's maximum SM
-clock; the stage network's counts one min or max per element and stage.
+memory rate and the time of the busiest limit of its text loop's SASS
+(from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
+ALU pipe's instructions over 64 lanes per SM, the FMA-heavy pipe's over
+64, every instruction over the 128 that issue per SM and clock.  The
+stage network's counts one min or max per element and stage on the ALU
+pipe.  A kernel that beats its bound fails its phase: the model is wrong
+or work was elided.
 The last two lines of stdout are one JSON object on the kernels and one
-``{"ok": true, "device": ...}`` object.
+``{"ok": true, "device": ...}`` object.  A kernel's ``launches`` there sum
+its paths' counts (each path counted from 0); the ``[launches]`` line
+before them gives them path by path.
 
 With ``--ranks N`` the script runs only phase 13's check of N ranks under
 torchrun against the same N ranks on the CPU, rank r on card r (NCCL for
@@ -120,12 +126,21 @@ KERNELS = {
 }
 SMALL_KS = (2, 3, 16, 31, 32)
 MAIN = dict(C=500, W=40000, m=101, maxerr=2, n_invalid=333)
-# H100 SXM: 132 SMs x 64 INT32 lanes; HBM3 3.35 TB/s (NVIDIA data sheet)
-SMS, INT_LANES, HBM_BYTES_PER_S = 132, 64, 3.35e12
-# SASS opcodes that issue to the integer ALU pipe (IMAD goes to the FMA
-# pipe, uniform-datapath U* ops and loads elsewhere)
-INT_PIPE = re.compile(r"(LOP3|LOP|IADD3|IADD|SHF|SEL|ISETP|VIADD|VIMNMX|"
-                      r"IMNMX|PRMT|LEA|IABS|BMSK|SGXT|PLOP3)\b")
+# H100 SXM: 132 SMs; HBM3 3.35 TB/s (NVIDIA data sheet)
+SMS, HBM_BYTES_PER_S = 132, 3.35e12
+# Thread-instructions per SM and clock of each limit: each of the four
+# sub-partitions issues one warp instruction a clock and has 16 lanes of
+# the integer ALU pipe and 16 of the FMA-heavy pipe
+LANES = {"alu": 64, "fma": 64, "issue": 128}
+# SASS opcodes by pipe.  ALU: logic, shifts, compares, selects, integer
+# adds and min/max.  FMA-heavy: IMAD and IMUL (also as the compiler's
+# IMAD.MOV, IMAD.SHL, IMAD.IADD) and VIADD, which the card's times rule
+# out for the ALU: the packed NFA at pack 1 ran under a bound that counted
+# its VIADDs there.  Every instruction, these and the rest (loads,
+# branches, uniform-datapath ops), takes an issue slot.
+ALU_PIPE = re.compile(r"(LOP3|LOP|IADD3|IADD|SHF|SEL|ISETP|VIMNMX|IMNMX|"
+                      r"PRMT|LEA|IABS|BMSK|SGXT|PLOP3)\b")
+FMA_PIPE = re.compile(r"(IMAD|IMUL|VIADD)\b")
 MINMAX = re.compile(r"V?IMNMX\b")
 START_ADAPTER = "AATGTACTTCGTTCAGTTACGTATTGCT"
 END_ADAPTER = "GCAATACGTAACTGAACGAAGTACATT"
@@ -208,18 +223,24 @@ def sass_loops(so, sym: str) -> list[list[str]]:
     return [[i for a, i in ins if lo <= a <= hi] for _, lo, hi in loops]
 
 
-def sass_int_ops_per_step(so, kernel: str, targs: tuple = ()) -> float:
-    """Integer-pipe SASS instructions per text step of ``kernel`` (a thread's
-    step over all its candidates): the instructions of the kernel's largest
-    backward-branch loop that match INT_PIPE, over the loop's text-byte
-    loads (steps per iteration)."""
+def sass_ops_per_step(so, kernel: str, targs: tuple = ()) -> dict:
+    """SASS instructions per text step of ``kernel`` (a thread's step over
+    all its candidates) for each limit of ``LANES``: those of the kernel's
+    largest backward-branch loop that match ALU_PIPE, FMA_PIPE and all of
+    them, over the loop's text-byte loads (steps per iteration)."""
     sym = f"{kernel}_kernel" + (
         "I" + "".join(f"Li{a}E" for a in targs) + "E" if targs else "E")
     body = sass_loops(so, sym)[0]
     steps = sum("LDG.E.U8" in i for i in body)
     if steps < 1:
         raise AssertionError(f"{sym}: no text load in its largest loop")
-    return sum(bool(INT_PIPE.match(i)) for i in body) / steps
+    return {"alu": sum(bool(ALU_PIPE.match(i)) for i in body) / steps,
+            "fma": sum(bool(FMA_PIPE.match(i)) for i in body) / steps,
+            "issue": len(body) / steps}
+
+
+def ops_text(ops: dict) -> str:
+    return ", ".join(f"{n:g} {pipe}" for pipe, n in ops.items())
 
 
 def sass_minmax_per_stage_trip(so) -> dict:
@@ -241,25 +262,34 @@ def sass_minmax_per_stage_trip(so) -> dict:
     return counts
 
 
-def roofline(ops: float, nbytes: float, clock_hz: float) -> tuple[float, str]:
-    """(bound ms, what bounds it): ``ops`` integer-pipe instructions over
-    the card's INT32 lanes at ``clock_hz``, against ``nbytes`` over the
-    memory rate."""
-    t_ops = ops / (SMS * INT_LANES * clock_hz)
+def roofline(ops: dict, nbytes: float, clock_hz: float) -> tuple[float, str]:
+    """(bound ms, what bounds it): the busiest limit's instructions
+    (``ops`` by limit of ``LANES``) over its lanes at ``clock_hz``, against
+    ``nbytes`` over the memory rate."""
+    t_ops = max(n / (SMS * LANES[pipe] * clock_hz) for pipe, n in ops.items())
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(kernel: str, ops_per_step: float, C: int, pack: int,
+def bound(kernel: str, ops_per_step: dict, C: int, pack: int,
           clock_hz: float, m: int = MAIN["m"],
           W: int = MAIN["W"]) -> tuple[float, str]:
     """(bound ms, what bounds it) for C candidates and W windows of m
     symbols (the main shape by default)."""
     per_thread = KERNELS[kernel][2] * pack
-    ops = ops_per_step * m * W * -(-C // per_thread)
+    steps = m * W * -(-C // per_thread)
     # inputs once: int64 peq [C, 4], text [m, W], valid [W]; int32 out [C]
-    return roofline(ops, 32 * C + m * W + W + 4 * C, clock_hz)
+    return roofline({pipe: n * steps for pipe, n in ops_per_step.items()},
+                    32 * C + m * W + W + 4 * C, clock_hz)
+
+
+def not_under(what: str, ms: float, bound_ms: float) -> None:
+    """Raises when a kernel's time beats its bound."""
+    if ms < bound_ms:
+        raise AssertionError(f"{what}: {ms:.4f} ms is under its bound "
+                             f"{bound_ms:.4f} ms: the bound model is wrong "
+                             f"or work was elided")
 
 
 def random_case(rng, C: int, W: int, m: int, k: int, n_invalid: int):
@@ -377,14 +407,15 @@ def phase_kernel(builds: dict, clock_hz: float) -> dict:
                                       "nfa_sliced != plain at the main shape"))
     ms = time_ms(lambda: approx_counts(*args), 20)
     plain_ms = time_ms(lambda: approx_counts_ref(*args), 3)
-    ops = sass_int_ops_per_step(builds[("nfa_sliced", k, e)].so,
-                                "nfa_sliced", (k, e))
+    ops = sass_ops_per_step(builds[("nfa_sliced", k, e)].so, "nfa_sliced",
+                            (k, e))
     bound_ms, bound_by = bound("nfa_sliced", ops, MAIN["C"], 1, clock_hz)
     log(f"[kernel] main shape C=500 W=40000 m=101 k=16 maxerr=2: "
         f"kernel == plain exactly; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms (CUDA events, mean of 20 / 3 calls after 2 warm-up); bound "
-        f"{bound_ms:.4f} ms ({ops:g} integer-pipe SASS ops per step and "
-        f"32-candidate word)")
+        f"{bound_ms:.4f} ms ({bound_by}; SASS ops per step and 32-candidate "
+        f"word: {ops_text(ops)})")
+    not_under("nfa_sliced at the main shape", ms, bound_ms)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -435,12 +466,13 @@ def phase_alternates(builds: dict, clock_hz: float) -> dict:
                              f"{what} != approx_counts_ref"))
         ms = time_ms(fn, 20)
         plain_ms = time_ms(lambda: plain(*args), 3)
-        ops = sass_int_ops_per_step(builds[(kernel,)].so, kernel, targs)
+        ops = sass_ops_per_step(builds[(kernel,)].so, kernel, targs)
         bound_ms, bound_by = bound(kernel, ops, MAIN["C"], pack, clock_hz)
         log(f"[alternates] {what} maxerr={e} at C=500 W=40000 m=101: == plain "
             f"and == approx_counts_ref exactly; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({ops:g} "
-            f"integer-pipe SASS ops per step and thread)")
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; SASS "
+            f"ops per step and thread: {ops_text(ops)})")
+        not_under(what, ms, bound_ms)
         entries.setdefault(kernel, dict(max_abs_err=err, ms=ms,
                                         plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=bound_by))
@@ -652,16 +684,14 @@ def phase_sort_stage(builds: dict, clock_hz: float) -> tuple[dict, int]:
         plain_ms = time_ms(lambda: stage_network_ref(x, probe.STAGES, te), 3)
         run = stages_run(probe.STAGES, te)
         # one min or max per element and stage; int32 in and out once
-        bound_ms, bound_by = roofline(run * rows * 128, 8 * rows * 128,
-                                      clock_hz)
+        bound_ms, bound_by = roofline({"alu": run * rows * 128},
+                                      8 * rows * 128, clock_hz)
         log(f"[sort_stage] [{rows}, 128] int32, {run} stages, transpose "
             f"every {te}: kernel == plain exactly; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms (CUDA events, mean of 20 / 3 calls after 2 "
             f"warm-up); bound {bound_ms:.4f} ms ({bound_by}); "
             f"{run * rows * 128 / ms / 1e9:.4f} T elem-stages/s")
-        if ms < bound_ms:
-            raise AssertionError(f"sort_stage {ms:.4f} ms is under its bound "
-                                 f"{bound_ms:.4f} ms: work was elided")
+        not_under(f"sort_stage, transpose every {te}", ms, bound_ms)
         if entry is None:
             entry = dict(max_abs_err=max(max_err, err), ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
@@ -732,10 +762,11 @@ def phase_limit(builds: dict, clock_hz: float) -> dict:
                f"{len(plan)} launches != one launch over the first "
                f"{OLD_LIMIT} candidates")
     ms = time_ms(lambda: bpm.approx_counts(peq, *args), 3)
-    ops = sass_int_ops_per_step(builds[("nfa_sliced", k, e)].so,
-                                "nfa_sliced", (k, e))
+    ops = sass_ops_per_step(builds[("nfa_sliced", k, e)].so, "nfa_sliced",
+                            (k, e))
     bound_ms, bound_by = bound("nfa_sliced", ops, C, 1, clock_hz,
                                LIMIT["m"], LIMIT["W"])
+    not_under(f"nfa_sliced at C={C}", ms, bound_ms)
     log(f"[limit] C={C} ({C // 32} words) W={LIMIT['W']} m={LIMIT['m']} "
         f"k=16 maxerr=2: {launches} launches {plan}; kernel == plain on "
         f"{len(rows)} rows (1,024 random, 2,000 around candidate "
@@ -801,9 +832,10 @@ def phase_alt_limit(builds: dict, clock_hz: float) -> None:
                    f"{name}: {len(plan)} launches != one launch over the "
                    f"first {ALT_OLD_LIMIT} candidates")
         ms = time_ms(lambda: fn(peq), 3)
-        ops = sass_int_ops_per_step(builds[(name,)].so, name, targs)
+        ops = sass_ops_per_step(builds[(name,)].so, name, targs)
         bound_ms, bound_by = bound(name, ops, C, 1, clock_hz,
                                    ALT_LIMIT["m"], ALT_LIMIT["W"])
+        not_under(f"{name} at C={C}", ms, bound_ms)
         log(f"[limit] {name}{' pack 1' if targs else ''} C={C} "
             f"W={ALT_LIMIT['W']} m={ALT_LIMIT['m']} k=16 maxerr=2: "
             f"{launches} launches {plan}; kernel == plain on {len(rows)} rows "
@@ -912,9 +944,11 @@ def kernel_at(builds: dict, clock_hz: float, C: int, reps: int,
             torch.from_numpy(wins_t).to(dev), torch.from_numpy(valid).to(dev),
             k, e)
     ms = time_ms(lambda: approx_counts(*args), reps, warmup)
-    ops = sass_int_ops_per_step(builds[("nfa_sliced", k, e)].so,
-                                "nfa_sliced", (k, e))
-    return (ms, *bound("nfa_sliced", ops, C, 1, clock_hz))
+    ops = sass_ops_per_step(builds[("nfa_sliced", k, e)].so, "nfa_sliced",
+                            (k, e))
+    bound_ms, bound_by = bound("nfa_sliced", ops, C, 1, clock_hz)
+    not_under(f"nfa_sliced at C={C}", ms, bound_ms)
+    return ms, bound_ms, bound_by
 
 
 def phase_solid(fasta: str, out_dir: str, builds: dict,
@@ -1382,9 +1416,9 @@ def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
     return sum(got[(r, "warm")] for r in range(n))
 
 
-def phase_multihost(fasta: str, out_dir: str) -> int:
+def phase_multihost(fasta: str, out_dir: str) -> dict:
     """Phase 13: --multihost on the card over two round-robin shards of the
-    FASTA.  Returns the nfa_sliced launches of its warm runs."""
+    FASTA.  Returns the nfa_sliced launches of its warm runs by path."""
     import torch
 
     from approx_counter_tpu_torch.config.cli import resolve_params
@@ -1420,7 +1454,7 @@ def phase_multihost(fasta: str, out_dir: str) -> int:
         f"{time.perf_counter() - t0:.1f} s)")
 
     # (b) two ranks sharing the card under torchrun (gloo)
-    launches += ranks_vs_cpu(2, shards, out_dir)
+    two_ranks = ranks_vs_cpu(2, shards, out_dir)
 
     # (c) identity sampling: one rank, two ranks (the CLI itself under
     # torchrun, profiled) and --stream on the unsplit file
@@ -1456,7 +1490,9 @@ def phase_multihost(fasta: str, out_dir: str) -> int:
         f"(torchrun -m approx_counter_tpu_torch --profile: nfa_sliced kernels "
         f"per rank trace {traced}) and --stream on the unsplit file: 4 "
         f"exports byte-equal")
-    return launches + id_launches
+    return {"multihost, one rank": launches,
+            "multihost, two ranks": two_ranks,
+            "multihost -sn 60000, one rank": id_launches}
 
 
 def main_ranks(n: int) -> int:
@@ -1526,7 +1562,9 @@ def main(argv: list[str] | None = None) -> int:
         write_fasta(fasta, 50000, seed=5)
         log(f"[data] 50,000 synthetic reads written in "
             f"{time.perf_counter() - t0:.2f} s")
-        launches = {"nfa_sliced": phase_main_path(fasta, tmp, 16)}
+        # each kernel's launches by path, each path's counted from 0
+        paths = {"nfa_sliced": {"default run":
+                                phase_main_path(fasta, tmp, 16)}}
         phase_main_path(fasta, tmp, 32)
         for k in (16, 17, 32):
             phase_parity(fasta, tmp, k)
@@ -1539,16 +1577,18 @@ def main(argv: list[str] | None = None) -> int:
         phase_resume(fasta, tmp)
         phase_stream(fasta, tmp)
         phase_profile(fasta, tmp)
-        launches["nfa_sliced"] += phase_multihost(fasta, tmp)
+        paths["nfa_sliced"].update(phase_multihost(fasta, tmp))
     checks = phase_gpu_check()
     for name in ("bpm_myers", "bpm_packed", "nfa_packed"):
-        launches[name] = checks[name]
-    entries["sort_stage"], launches["sort_stage"] = phase_sort_stage(
-        builds, clock_hz)
+        paths[name] = {"gpu_check": checks[name]}
+    entries["sort_stage"], probe_launches = phase_sort_stage(builds, clock_hz)
+    paths["sort_stage"] = {"probe": probe_launches}
+    log(f"[launches] by path: {json.dumps(paths)}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
-         **entries[name], "library_ms": None}
+         "replaces": KERNELS[name][1],
+         "launches": sum(paths[name].values()), **entries[name],
+         "library_ms": None}
         for name in KERNELS
     ]}))
     print(ok_line())

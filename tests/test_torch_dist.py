@@ -272,6 +272,47 @@ def test_sharded_counts_and_full_step_at_one_rank():
     assert got[2] == want[2]
 
 
+NCCL = "cpu:gloo,cuda:nccl"
+
+
+@pytest.mark.parametrize("env,n_dev,pid,nproc,want", [
+    # torchrun's local rank and local size win over explicit arguments
+    ({"LOCAL_RANK": "1", "LOCAL_WORLD_SIZE": "2", "WORLD_SIZE": "4"}, 2,
+     3, 4, (1, NCCL)),
+    ({"LOCAL_RANK": "1", "LOCAL_WORLD_SIZE": "2"}, 1, None, None,
+     (0, "gloo")),
+    # explicit arguments: the rank picks the card, the count the backend
+    ({}, 4, 3, 4, (3, NCCL)),
+    ({}, 2, 3, 4, (1, "gloo")),
+    ({}, 1, 1, 2, (0, "gloo")),
+    # neither: rank 0 of WORLD_SIZE
+    ({}, 8, None, None, (0, NCCL)),
+    ({"WORLD_SIZE": "2"}, 1, None, None, (0, "gloo")),
+])
+def test_cuda_layout_picks_the_card_and_backend(env, n_dev, pid, nproc,
+                                                want):
+    from approx_counter_tpu_torch.dist.mesh import cuda_layout
+
+    assert cuda_layout(env, n_dev, pid, nproc) == want
+
+
+def test_rank_device_follows_the_rank_without_torchrun(monkeypatch):
+    """Ranks started by hand (no ``LOCAL_RANK``) take the card of their
+    rank, not all ``cuda:0``; a host without a card raises."""
+    from approx_counter_tpu_torch.dist import mesh
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert mesh.rank_device(5) == torch.device("cuda", 2)
+    assert mesh.rank_device() == torch.device("cuda", 0)  # no group: rank 0
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert mesh.rank_device(5) == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.rank_device(0)
+
+
 # --- the whole run --------------------------------------------------------
 
 

@@ -1,14 +1,16 @@
 """The port's ``--multihost`` orchestrator in 2 and 4 OS processes, joined by
 ``torch.distributed`` over gloo on the CPU.
 
-Each rank is a subprocess that calls ``dist/mesh.py:initialize`` and
-``run_pipeline_multihost(prm, device="cpu")``.  At identity sampling N ranks
-must export the bytes of one rank and of the single-device ``--stream`` run;
-unbalanced shards must fill the whole sample; below identity the ranks'
-exports must equal the JAX package's own two-process run on the same shards
-and seed (the per-rank seeds and draws); and counts all-reduced twice must
-fail that comparison.  Every process group has an init timeout and every
-``communicate`` a timeout, so a hang fails the test.
+Each rank is a subprocess that calls ``dist/mesh.py:initialize`` once and
+then ``run_pipeline_multihost(prm, device="cpu")`` for each of a list of
+runs (one process group per rank count, as importing torch dominates a
+rank's start).  At identity sampling N ranks must export the bytes of one
+rank and of the single-device ``--stream`` run; unbalanced shards must fill
+the whole sample; below identity the ranks' exports must equal the JAX
+package's own two-process run on the same shards and seed (the per-rank
+seeds and draws); and counts all-reduced twice must fail that comparison.
+Every process group has an init timeout and every ``communicate`` a
+timeout, so a hang fails the test.
 """
 
 import json
@@ -33,26 +35,32 @@ WORKER = r"""
 import json, sys
 import torch
 torch.set_num_threads(1)
-repo, pid, nproc, port, prm_json, mode = sys.argv[1:7]
+repo, pid, nproc, port, runs_json = sys.argv[1:6]
 sys.path.insert(0, repo)
 from approx_counter_tpu_torch.dist import mesh
 from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
 from approx_counter_tpu_torch.params import Params
 mesh.initialize(f"tcp://127.0.0.1:{port}", int(nproc), int(pid),
                 device_type="cpu", timeout=120)
-if mode == "all_reduce_twice":
-    all_reduce = torch.distributed.all_reduce
+all_reduce = torch.distributed.all_reduce
 
-    def twice(t, *a, **kw):
-        all_reduce(t, *a, **kw)
-        all_reduce(t, *a, **kw)
 
-    torch.distributed.all_reduce = twice
+def twice(t, *a, **kw):
+    all_reduce(t, *a, **kw)
+    all_reduce(t, *a, **kw)
+
+
 try:
-    rc = run_pipeline_multihost(Params(**json.loads(prm_json)), device="cpu")
+    for name, prm, mode in json.loads(runs_json):
+        for stream in (sys.stdout, sys.stderr):
+            print(f"@@ {name}", file=stream, flush=True)
+        torch.distributed.all_reduce = (twice if mode == "all_reduce_twice"
+                                        else all_reduce)
+        rc = run_pipeline_multihost(Params(**prm), device="cpu")
+        sys.stdout.flush()
+        print(f"@@ rc {rc}", file=sys.stderr, flush=True)
 finally:
     torch.distributed.destroy_process_group()
-sys.exit(rc)
 """
 
 #: The JAX two-process worker's fixed parameters (tests/test_multiprocess.py)
@@ -66,12 +74,13 @@ def _seqs(n=20, length=40, seed=1234):
     return [codes_to_seq(rng.integers(0, 4, length)) for _ in range(n)]
 
 
-def _write_shards(tmp_path, seqs, owner, n_shards):
+def _write_shards(directory, seqs, owner, n_shards):
     """Shard files ``shard<i>.fasta``; read i goes to ``owner(i)``.  Also
     writes every read to ``all.fasta``.  Returns the shard paths."""
-    paths = [tmp_path / f"shard{i}.fasta" for i in range(n_shards)]
+    directory.mkdir(exist_ok=True)
+    paths = [directory / f"shard{i}.fasta" for i in range(n_shards)]
     files = [open(p, "w") for p in paths]
-    with open(tmp_path / "all.fasta", "w") as fall:
+    with open(directory / "all.fasta", "w") as fall:
         for i, s in enumerate(seqs):
             rec = f">r{i}\n{s}\n"
             fall.write(rec)
@@ -96,14 +105,28 @@ def _communicate(procs):
     return results
 
 
-def run_ranks(n, prm, mode="ok"):
-    """``run_pipeline_multihost`` on ``n`` gloo ranks; their results."""
+def run_ranks(n, runs):
+    """``runs``, a list of ``(name, prm, mode)``, one after the other on
+    ``n`` gloo ranks -> ``{name: [(rc, stdout, stderr) of each rank]}``."""
     port = str(_free_port())
-    return _communicate([
+    results = _communicate([
         subprocess.Popen([sys.executable, "-c", WORKER, REPO, str(pid),
-                          str(n), port, json.dumps(prm), mode],
+                          str(n), port, json.dumps(runs)],
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for pid in range(n)])
+    for rc, _, err in results:
+        assert rc == 0, err[-3000:]
+    by_run = {name: [] for name, _, _ in runs}
+    for _, out, err in results:
+        outs = dict(re.findall(r"^@@ (\w+)\n(.*?)(?=^@@ |\Z)", out,
+                               re.S | re.M))
+        for name, text in re.findall(r"^@@ (\w+)\n(.*?)(?=^@@ \w+\n|\Z)",
+                                     err, re.S | re.M):
+            rc = re.search(r"^@@ rc (\d+)\n", text, re.M)
+            by_run[name].append((int(rc.group(1)), outs[name],
+                                 text[:rc.start()]))
+    assert all(len(v) == n for v in by_run.values()), by_run
+    return by_run
 
 
 def run_jax_ranks(n, paths, out, exact, sn, v):
@@ -130,8 +153,51 @@ def _assert_ok(results):
         assert rc == 0, err[-3000:]
 
 
+#: per rank count, the unbalanced case's shard sizes and sn
+UNBALANCED = {2: ((3, 17), 10), 4: ((1, 2, 3, 14), 12)}
+
+
+def _runs(d, n):
+    """The runs of ``n`` ranks, their shards written under ``d``."""
+    def prm(case, paths, stem=None, **kw):
+        stem = stem or case
+        return dict(COMMON, input_file=",".join(paths), output=str(
+            d / case / stem), exact_out=str(d / case / f"{stem}e"), **kw)
+
+    ident = _write_shards(d / "identity", _seqs(), lambda i: i % n, n)
+    sizes, sn = UNBALANCED[n]
+    bounds = np.cumsum(sizes)
+    unbal = _write_shards(d / "unbalanced", _seqs(), lambda i: int(
+        np.searchsorted(bounds, i, "right")), n)
+    runs = [("identity", prm("identity", ident, "mh", sn=100, v=1), "ok"),
+            ("unbalanced", prm("unbalanced", unbal, "mh", sn=sn, v=1), "ok")]
+    if n == 2:
+        below = _write_shards(d / "below", _seqs(n=40, seed=99),
+                              lambda i: i % 2, 2)
+        runs += [
+            ("below", prm("below", below, "mh", sn=13, v=1), "ok"),
+            ("twice", prm("below", below, "bad", sn=13, v=1),
+             "all_reduce_twice"),
+            # last: only rank 0 exports, and it fails
+            ("export_failure", dict(prm("identity", ident, sn=100, v=0),
+                                    output=str(d / "no" / "dir")), "ok")]
+    return runs
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Every run of ``_runs`` at 2 and at 4 ranks, each rank count one
+    process group: ``{n: (directory, {run: results of each rank})}``."""
+    out = {}
+    for n in (2, 4):
+        d = tmp_path_factory.mktemp(f"ranks{n}")
+        out[n] = d, run_ranks(n, _runs(d, n))
+    return out
+
+
 @pytest.mark.parametrize("n", [2, 4])
-def test_identity_n_ranks_equal_one_rank_and_stream(tmp_path, capsys, n):
+def test_identity_n_ranks_equal_one_rank_and_stream(ranks, tmp_path, capsys,
+                                                    n):
     """tests/test_multiprocess.py:48: at identity sampling (sn above the
     read count) every rank count exports the one-rank and the ``--stream``
     bytes; rank 0 prints the one-rank stdout and the other ranks nothing."""
@@ -139,23 +205,24 @@ def test_identity_n_ranks_equal_one_rank_and_stream(tmp_path, capsys, n):
     from approx_counter_tpu_torch.params import Params
     from approx_counter_tpu_torch.pipeline import run_pipeline
 
-    paths = _write_shards(tmp_path, _seqs(), lambda i: i % n, n)
-    shards = ",".join(paths)
-    prm = dict(COMMON, input_file=shards, sn=100, v=1)
-    results = run_ranks(n, dict(prm, output=str(tmp_path / "mh"),
-                                exact_out=str(tmp_path / "mhe")))
+    d, by_run = ranks[n]
+    d = d / "identity"
+    results = by_run["identity"]
     _assert_ok(results)
+    shards = ",".join(str(d / f"shard{i}.fasta") for i in range(n))
+    prm = dict(COMMON, input_file=shards, sn=100, v=1)
     assert run_pipeline_multihost(Params(**prm, output=str(tmp_path / "one"),
                                          exact_out=str(tmp_path / "onee")),
                                   device="cpu") == 0
     one_out = capsys.readouterr().out
-    stream = dict(COMMON, input_file=str(tmp_path / "all.fasta"), sn=100,
+    stream = dict(COMMON, input_file=str(d / "all.fasta"), sn=100,
                   v=0, stream=True, multihost=False)
     assert run_pipeline(Params(**stream, output=str(tmp_path / "s"),
                                exact_out=str(tmp_path / "se")),
                         device="cpu") == 0
-    for ours, one, ref in (("mh", "one", "s"), ("mhe", "onee", "se")):
-        got = _exports(tmp_path, ours)
+    for (ours, od), one, ref in ((("mh", d), "one", "s"),
+                                 (("mhe", d), "onee", "se")):
+        got = _exports(od, ours)
         assert len(got) == 2
         assert got == _exports(tmp_path, one) == _exports(tmp_path, ref)
     assert "Number of sequences found: 20." in results[0][1]
@@ -163,69 +230,84 @@ def test_identity_n_ranks_equal_one_rank_and_stream(tmp_path, capsys, n):
     assert all(out == "" for _, out, _ in results[1:])
 
 
-@pytest.mark.parametrize("n,sizes,sn", [(2, (3, 17), 10),
-                                        (4, (1, 2, 3, 14), 12)])
-def test_unbalanced_shards_fill_the_budget(tmp_path, n, sizes, sn):
+@pytest.mark.parametrize("n", [2, 4])
+def test_unbalanced_shards_fill_the_budget(ranks, n):
     """tests/test_multiprocess.py:103,155: small shards do not undersample
     the global budget -- rank 0 reports a sample of exactly ``sn``."""
-    bounds = np.cumsum(sizes)
-    paths = _write_shards(tmp_path, _seqs(),
-                          lambda i: int(np.searchsorted(bounds, i, "right")),
-                          n)
-    results = run_ranks(n, dict(COMMON, input_file=",".join(paths), sn=sn,
-                                v=1, output=str(tmp_path / "mh"),
-                                exact_out=str(tmp_path / "mhe")))
+    d, by_run = ranks[n]
+    results = by_run["unbalanced"]
+    sn = UNBALANCED[n][1]
     _assert_ok(results)
     assert f"Sampled {sn} sequences" in results[0][1]
     assert "Number of sequences found: 20." in results[0][1]
     assert all("Sampled" not in out for _, out, _ in results[1:])
-    exact = (tmp_path / "mhe_0.start").read_text().splitlines()
+    exact = (d / "unbalanced" / "mhe_0.start").read_text().splitlines()
     total = sum(int(line.split("\t")[1]) for line in exact)
     # sn start windows of 12 bases, k=6 -> at most 7 k-mers each
     assert 0 < total <= 7 * sn
 
 
-def _cross_package_shards(tmp_path):
-    seqs = _seqs(n=40, seed=99)
-    return _write_shards(tmp_path, seqs, lambda i: i % 2, 2)
+def _program_lines(stdout):
+    """The run's own lines of a stdout, timestamps stripped: the parameter
+    echo before the first timestamped line, then every timestamped line.
+    The JAX workers' gloo threads print connection notices into the same
+    stream, interleaved piece by piece; those are dropped."""
+    first = re.search(r"^\[[^\]\n]* ms\]\t", stdout, flags=re.M)
+    head = stdout[:first.start()] if first else stdout
+    return head.splitlines() + [
+        line.split("\t", 1)[1]
+        for line in re.findall(r"\[[^\]\n]* ms\]\t[^\n]*", stdout)]
 
 
-def test_two_ranks_below_identity_match_jax(tmp_path):
+@pytest.fixture(scope="module")
+def jax_below(ranks):
+    """The JAX package's two-process run on the ``below`` shards at sn=13,
+    v=1 (stems ``jax``, ``jaxe``): (directory, results of each process)."""
+    d = ranks[2][0] / "below"
+    paths = [str(d / f"shard{i}.fasta") for i in range(2)]
+    return d, run_jax_ranks(2, paths, str(d / "jax"), str(d / "jaxe"), 13, 1)
+
+
+def test_two_ranks_below_identity_match_jax(ranks, jax_below):
     """sn below the eligible count: the draws of each rank's generator
     (seed + 1000003 * rank) and the global cut decide the sample, so the
     exports and rank 0's stdout must equal the JAX package's two-process
     run on the same shards."""
-    paths = _cross_package_shards(tmp_path)
-    want = run_jax_ranks(2, paths, str(tmp_path / "jax"),
-                         str(tmp_path / "jaxe"), 13, 1)
+    d, want = jax_below
+    got = ranks[2][1]["below"]
     _assert_ok(want)
-    got = run_ranks(2, dict(COMMON, input_file=",".join(paths), sn=13, v=1,
-                            output=str(tmp_path / "mh"),
-                            exact_out=str(tmp_path / "mhe")))
     _assert_ok(got)
     for ours, theirs in (("mh", "jax"), ("mhe", "jaxe")):
-        g = _exports(tmp_path, ours)
+        g = _exports(d, ours)
         assert len(g) == 2
-        assert g == _exports(tmp_path, theirs)
+        assert g == _exports(d, theirs)
     assert "Sampled 13 sequences" in got[0][1]
-    jax_lines = [ln for ln in _strip_ms(want[0][1]).splitlines()
-                 if not ln.startswith(("[", "I0000", "W0000"))]
-    assert _strip_ms(got[0][1]).splitlines() == jax_lines
+    assert _strip_ms(got[0][1]).splitlines() == _program_lines(want[0][1])
 
 
-def test_counts_all_reduced_twice_fail_the_comparison(tmp_path):
+def test_program_lines_drop_interleaved_gloo_notices():
+    """The JAX stdout filter keeps the run's lines whole when gloo's
+    notices arrive in pieces between them."""
+    stdout = ("Kmer size:             6\nSampling length        12\n"
+              "[1.5 ms]\tStreaming pass\n[Gloo] Rank 3 is connected to "
+              "[Gloo] Rank 1 is connected to 72 peer ranks. Expected number"
+              " of connected peer ranks is : 7\n7 peer ranks. \n"
+              "[2 ms]\t\tNumber of kmer found: 91\n")
+    assert _program_lines(stdout) == [
+        "Kmer size:             6", "Sampling length        12",
+        "Streaming pass", "\tNumber of kmer found: 91"]
+
+
+def test_counts_all_reduced_twice_fail_the_comparison(ranks, jax_below):
     """tests/test_dist.py:336: a broken merge (every count summed over the
     ranks twice, so doubled) must not pass the comparison the test above
-    makes: the exact exports still agree, the approximate ones do not."""
-    paths = _cross_package_shards(tmp_path)
-    prm = dict(COMMON, input_file=",".join(paths), sn=13, v=0)
-    _assert_ok(run_ranks(2, dict(prm, output=str(tmp_path / "good"),
-                                 exact_out=str(tmp_path / "goode"))))
-    _assert_ok(run_ranks(2, dict(prm, output=str(tmp_path / "bad"),
-                                 exact_out=str(tmp_path / "bade")),
-                         mode="all_reduce_twice"))
-    assert _exports(tmp_path, "bade") == _exports(tmp_path, "goode")
-    bad, good = _exports(tmp_path, "bad"), _exports(tmp_path, "good")
+    makes: the exact exports still equal the JAX run's, the approximate
+    ones do not."""
+    d, want = jax_below
+    _assert_ok(want)
+    _assert_ok(ranks[2][1]["twice"])
+    assert _exports(d, "bade") == _exports(d, "jaxe")
+    bad, good = _exports(d, "bad"), _exports(d, "jax")
     assert set(bad) == set(good) == {"_0.start", "_0.end"}
     for name in good:
         assert bad[name] != good[name], name
@@ -233,12 +315,10 @@ def test_counts_all_reduced_twice_fail_the_comparison(tmp_path):
         assert sum(counts) > 0
 
 
-def test_export_failure_exits_1_on_every_rank(tmp_path):
+def test_export_failure_exits_1_on_every_rank(ranks):
     """Only rank 0 exports; when that fails, the failure is all-gathered so
     every rank returns 1 instead of waiting on the next collective."""
-    paths = _write_shards(tmp_path, _seqs(), lambda i: i % 2, 2)
-    results = run_ranks(2, dict(COMMON, input_file=",".join(paths), sn=100,
-                                v=0, output=str(tmp_path / "no" / "dir")))
+    results = ranks[2][1]["export_failure"]
     assert [rc for rc, _, _ in results] == [1, 1]
     assert "Failed to export approximate k-mer count" in results[0][2]
     assert "Failed to export" not in results[1][2]
