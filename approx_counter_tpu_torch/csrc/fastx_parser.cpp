@@ -1,8 +1,8 @@
 // Native FASTA/FASTQ parser: file -> contiguous 2-bit-friendly ordinal
 // buffer + offsets, the layout approx_counter_tpu_torch.io.fastx.Reads
-// wants.  Host C++, not a kernel: a copy of the JAX package's
-// native/fastx_parser.cpp without its window gather and sparse packer,
-// built by approx_counter_tpu_torch/kernels/_build.py (host_build, g++)
+// wants, and the window gather and sparse-N packer of the upload path.
+// Host C++, not a kernel: a copy of the JAX package's
+// native/fastx_parser.cpp, built by approx_counter_tpu_torch/kernels/_build.py (host_build, g++)
 // and bound with ctypes in approx_counter_tpu_torch/io/native.py.
 //
 // Fills the role of SeqAn's SeqFileIn/readRecords in the reference
@@ -387,6 +387,85 @@ Handle *fastx_parse(const char *path, const char **err) {
     else { *err = "Unrecognized sequence file format"; ok = false; }
     if (!ok) { delete h; return nullptr; }
     return h;
+}
+
+// Cut sampled windows out of the base buffer: row i of out gets
+// buf[starts[i] .. starts[i]+ncols).  Replaces the reference's per-read
+// prefix()/suffix() views (approx_counter.cpp:463-466) with a straight
+// memcpy loop.
+void fastx_gather_windows(const uint8_t *buf, const int64_t *starts,
+                          int64_t n, int64_t ncols, uint8_t *out,
+                          int64_t out_stride) {
+    for (int64_t i = 0; i < n; i++) {
+        memcpy(out + i * out_stride, buf + starts[i], (size_t)ncols);
+    }
+}
+
+// Sparse-N 2-bit window pack (the native counterpart of core/codec.py
+// pack_windows_sparse): write the 2-bit plane (4 bases/byte, base j of each 4-group
+// at bit 2*(j%4); row width ceil(m/8)*8/4 bytes) and collect the flattened
+// row*m+col indices of N symbols inside the valid region
+// [0, n_valid) x [0, ncols), in one streaming pass.
+// Returns: #N positions (>= 0); -1 if more than ncap Ns (the caller ships
+// the dense format); -2 if a non-N symbol >= 4 sits inside the valid
+// region (sampler-contract violation -- dense format too).
+int64_t fastx_pack_windows_sparse(const uint8_t *w, int64_t n, int64_t m,
+                                  int64_t n_valid, int64_t ncols,
+                                  uint8_t *lo, int32_t *n_idx,
+                                  int64_t ncap) {
+    const int64_t mp = ((m + 7) / 8) * 8;
+    const int64_t row_bytes = mp / 4;
+    int64_t n_n = 0;
+    for (int64_t r = 0; r < n; r++) {
+        const uint8_t *src = w + r * m;
+        uint8_t *dst = lo + r * row_bytes;
+        int64_t c = 0;
+        // full 4-groups inside the row
+        for (; c + 4 <= m; c += 4) {
+            dst[c / 4] = (uint8_t)((src[c] & 3) | ((src[c + 1] & 3) << 2) |
+                                   ((src[c + 2] & 3) << 4) |
+                                   ((src[c + 3] & 3) << 6));
+        }
+        // ragged tail: pad with BASE_PAD(5)&3 = 1 (sliced off on device)
+        for (int64_t g = c; g < mp; g += 4) {
+            uint8_t b = 0;
+            for (int t = 0; t < 4; t++) {
+                uint8_t v = (g + t < m) ? src[g + t] : 5;
+                b |= (uint8_t)((v & 3) << (2 * t));
+            }
+            dst[g / 4] = b;
+        }
+        if (r >= n_valid) continue;
+        // N scan over the valid columns: SWAR word test, rare slow path.
+        // The mask must cover ALL bits above the 2-bit base field (0xFC),
+        // not just bit 2: a junk symbol >= 8 has bit 2 clear and would
+        // otherwise be silently packed as v&3 instead of returning -2
+        // like the numpy version does.
+        int64_t cc = 0;
+        for (; cc + 8 <= ncols; cc += 8) {
+            uint64_t x;
+            memcpy(&x, src + cc, 8);
+            if (x & 0xFCFCFCFCFCFCFCFCULL) {
+                for (int t = 0; t < 8; t++) {
+                    uint8_t v = src[cc + t];
+                    if (v >= 4) {
+                        if (v != 4) return -2;
+                        if (n_n >= ncap) return -1;
+                        n_idx[n_n++] = (int32_t)(r * m + cc + t);
+                    }
+                }
+            }
+        }
+        for (; cc < ncols; cc++) {
+            uint8_t v = src[cc];
+            if (v >= 4) {
+                if (v != 4) return -2;
+                if (n_n >= ncap) return -1;
+                n_idx[n_n++] = (int32_t)(r * m + cc);
+            }
+        }
+    }
+    return n_n;
 }
 
 int64_t fastx_n_reads(Handle *h) { return (int64_t)h->offsets.size() - 1; }

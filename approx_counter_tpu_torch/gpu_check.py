@@ -24,7 +24,15 @@ Checks:
     with a repeated code and more codes than ``limit``, against
     ``oracle_error_count``;
   * the multihost step, ``dist/mesh.py:full_step`` at world size 1 (k=8,
-    121 valid windows of 512, limit 37), against the oracle pipeline.
+    121 valid windows of 512, limit 37), against the oracle pipeline;
+  * the window upload: the three torch unpackers on the device against the
+    batch they packed (256 windows of 101, 250 valid with 100 real symbols
+    and 59 Ns), then ``Engine.device_windows`` (native sparse-N pack,
+    pinned staging, non-blocking copy, unpack) on that batch and on one
+    with more than 4,096 Ns, which goes dense;
+  * the device window pool: ``Engine.build_pool`` and a pool pass
+    (``start_pass_pool``) at each end (k=8, 41 of 60 reads, limit 37)
+    against the oracle pipeline.
 
 Every count is an integer and every comparison exact.  Prints one row per
 check, then ``GPU-CHECK PASS`` or ``GPU-CHECK FAIL (n)``; exits 1 on any
@@ -38,13 +46,23 @@ import sys
 import numpy as np
 import torch
 
-from approx_counter_tpu_torch.core.codec import BASE_N, BASE_PAD
+from approx_counter_tpu_torch.core.codec import (
+    BASE_N,
+    BASE_PAD,
+    NCAP,
+    pack_windows_host,
+    pack_windows_sparse,
+    unpack_windows,
+    unpack_windows_sparse,
+    unpack_windows_sparse_t,
+)
 from approx_counter_tpu_torch.core.complexity import (
     adjust_threshold,
     lc_sum_threshold,
 )
 from approx_counter_tpu_torch.count.exact import exact_count_select
 from approx_counter_tpu_torch.dist.mesh import approx_counts_sharded, full_step
+from approx_counter_tpu_torch.io.fastx import Reads
 from approx_counter_tpu_torch.kernels.bpm import (
     approx_counts,
     approx_counts_myers,
@@ -188,6 +206,72 @@ def _mesh_step_row(rng, device) -> tuple[str, bool]:
             _pairs(ec, ecnt) == sel and _pairs(ac, acnt) == ranked)
 
 
+def _codec_rows(rng, device) -> list[tuple[str, bool]]:
+    """The packed formats' round trips through the device unpackers, then
+    ``Engine.device_windows`` on a sparse and a dense batch."""
+    n, m, nv, ncols = 256, 101, 250, 100
+    wb = np.full((n, m), BASE_PAD, np.uint8)
+    wb[:nv, :ncols] = rng.integers(0, 4, (nv, ncols))
+    for _ in range(57):
+        wb[rng.integers(0, nv), rng.integers(0, ncols)] = BASE_N
+    wb[0, 0] = wb[nv - 1, ncols - 1] = BASE_N
+    lo, n_idx, got_ncols, _ = pack_windows_sparse(wb, nv)
+    args = (torch.from_numpy(lo).to(device), torch.from_numpy(n_idx).to(device),
+            nv, got_ncols, m)
+    planes = torch.from_numpy(pack_windows_host(wb)[0]).to(device)
+    rows = [
+        ("sparse-N window unpack round trip",
+         np.array_equal(unpack_windows_sparse(*args).cpu().numpy(), wb)),
+        ("dense window unpack round trip",
+         np.array_equal(unpack_windows(planes, m).cpu().numpy(), wb)),
+        ("transposed sparse unpack round trip",
+         np.array_equal(unpack_windows_sparse_t(*args).cpu().numpy(), wb.T)),
+    ]
+    engine = Engine(Params(k=8, sl=m - 1), device)
+    dense = rng.integers(0, 4, (600, m)).astype(np.uint8)
+    dense[rng.random(dense.shape) < 0.1] = BASE_N  # ~6,000 Ns > NCAP
+    for what, batch, n_valid in (("sparse", wb, nv), ("dense", dense, 590)):
+        windows_t, mask = engine.device_windows(batch, n_valid)
+        rows.append((f"device_windows {what} upload round trip",
+                     np.array_equal(windows_t.cpu().numpy(), batch.T)
+                     and np.array_equal(mask.cpu().numpy(),
+                                        np.arange(len(batch)) < n_valid)
+                     and ((batch == BASE_N).sum() > NCAP) == (what == "dense")))
+    return rows
+
+
+def _pool_rows(rng, device) -> list[tuple[str, bool]]:
+    """Pool passes at both ends: the start sl-prefix and end sl+1-suffix
+    windows of 41 chosen reads, gathered on the device from the pool."""
+    k, sl, n_reads, sn, limit = 8, 24, 60, 41, 37
+    lens = rng.integers(2 * sl, 3 * sl, n_reads)
+    buf = rng.integers(0, 4, int(lens.sum())).astype(np.uint8)
+    offs = np.zeros(n_reads + 1, np.int64)
+    offs[1:] = np.cumsum(lens)
+    buf[rng.integers(0, len(buf), 15)] = BASE_N
+    engine = Engine(Params(k=k, sl=sl, limit=limit, param_lc=1.0), device)
+    built = engine.build_pool(Reads(buf=buf, offsets=offs), sl)
+    chosen = rng.permutation(n_reads)[:sn]
+    rows = []
+    for end in (False, True):
+        (ec, ecnt), (ac, acnt), stats = engine.start_pass_pool(
+            chosen, sn, end=end).finish()
+        texts = []
+        for rid in chosen:
+            s = buf[offs[rid]:offs[rid + 1]]
+            texts.append(s[len(s) - 1 - sl:] if end else s[:sl])
+        counter, had_n = oracle_count_kmers(
+            texts, k, adjust_threshold(1.0, 16, k), set())
+        sel = oracle_get_most_frequent(counter, limit, k)
+        ranked = oracle_sort_compare_count(
+            oracle_error_count(texts, [c for c, _ in sel], k), k)[:limit]
+        rows.append((f"pool-path pass end={int(end)} vs oracle",
+                     built and _pairs(ec, ecnt) == sel
+                     and _pairs(ac, acnt) == ranked
+                     and stats["had_n"] == had_n))
+    return rows
+
+
 def run(device=torch.device("cuda")) -> list[tuple[str, bool]]:
     """One (name, ok) row per check, on ``device``."""
     device = torch.device(device)
@@ -197,6 +281,8 @@ def run(device=torch.device("cuda")) -> list[tuple[str, bool]]:
     rows += _pass_rows(rng, device)
     rows.append(_resume_row(rng, device))
     rows.append(_mesh_step_row(rng, device))
+    rows += _codec_rows(rng, device)
+    rows += _pool_rows(rng, device)
     return rows
 
 

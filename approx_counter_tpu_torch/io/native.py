@@ -1,7 +1,7 @@
 """ctypes binding to the port's native FASTA/FASTQ parser.
 
-Port of ``approx_counter_tpu/io/native.py`` for the whole-file and the
-chunk parser.  The library is built from ``csrc/fastx_parser.cpp`` by
+Port of ``approx_counter_tpu/io/native.py``: the whole-file and the chunk
+parser, the window gather and the sparse-N window packer.  The library is built from ``csrc/fastx_parser.cpp`` by
 ``g++`` at first use (``kernels/_build.py:host_build``), never when this
 module is imported; a missing ``g++`` or a failed build raises, and there is
 no fallback to the Python parser.
@@ -45,6 +45,16 @@ def _load() -> ctypes.CDLL:
     lib.fastx_offsets.argtypes = [ctypes.c_void_p]
     lib.fastx_free.restype = None
     lib.fastx_free.argtypes = [ctypes.c_void_p]
+    lib.fastx_gather_windows.restype = None
+    lib.fastx_gather_windows.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.fastx_pack_windows_sparse.restype = ctypes.c_int64
+    lib.fastx_pack_windows_sparse.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ]
     _LIB = lib
     return lib
 
@@ -55,6 +65,49 @@ def _copy(ptr, n: int, dtype) -> np.ndarray:
     if n:
         ctypes.memmove(out.ctypes.data, ptr, out.nbytes)
     return out
+
+
+def gather_windows_native(buf: np.ndarray, starts: np.ndarray, ncols: int,
+                          out: np.ndarray) -> None:
+    """Row i of ``out[:, :ncols]`` <- ``buf[starts[i] : starts[i]+ncols]``,
+    one memcpy per row.  ``buf`` and ``out`` are uint8, ``out``
+    C-contiguous with at least ``len(starts)`` rows of ``ncols``; every
+    window must lie inside ``buf``."""
+    lib = _load()
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    n = len(starts)
+    if not (out.dtype == np.uint8 and out.flags.c_contiguous
+            and out.ndim == 2 and out.shape[0] >= n
+            and out.shape[1] >= ncols):
+        raise ValueError(f"gather_windows_native: out {out.dtype} "
+                         f"{out.shape} cannot take {n} rows of {ncols}")
+    if n == 0:
+        return
+    if starts.min() < 0 or starts.max() + ncols > len(buf):
+        raise ValueError("gather_windows_native: a window lies outside buf")
+    lib.fastx_gather_windows(buf.ctypes.data, starts.ctypes.data, n, ncols,
+                             out.ctypes.data, out.strides[0])
+
+
+def pack_windows_sparse_native(windows: np.ndarray, n_valid: int,
+                               ncols: int, ncap: int):
+    """The sparse-N 2-bit pack and N scan of ``core/codec.py:
+    pack_windows_sparse`` in one native pass: (lo uint8 [n, mp/4], n_idx
+    int32 [ncap]), or None where that function gives None (more than
+    ``ncap`` Ns, a contract violation, or ``n*m >= 2**31``).  A batch that
+    is not C-contiguous uint8 is copied to one first."""
+    lib = _load()
+    windows = np.ascontiguousarray(windows, dtype=np.uint8)
+    n, m = windows.shape
+    if n * m >= 2**31:  # the N indices are int32
+        return None
+    lo = np.empty((n, -(-m // 8) * 2), np.uint8)
+    n_idx = np.full(ncap, np.iinfo(np.int32).max, np.int32)
+    rc = lib.fastx_pack_windows_sparse(windows.ctypes.data, n, m, n_valid,
+                                       ncols, lo.ctypes.data,
+                                       n_idx.ctypes.data, ncap)
+    return None if rc < 0 else (lo, n_idx)
 
 
 def read_fastx_native(path: str) -> Reads:

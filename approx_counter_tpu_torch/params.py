@@ -49,7 +49,8 @@ class Params:
     profile_dir: str = ""       # torch.profiler trace dir (__main__.run)
     max_error: int = 2          # edit-distance bound (reference hardcodes 2
     #                             at compile time, approx_counter.cpp:25)
-    device_pool: str = "auto"   # accepted for flag compatibility; inert here
+    device_pool: str = "auto"   # device window pool: auto|on|off
+    #                             (pipeline.run_pipeline)
 
     def validate(self) -> None:
         """approx_counter.cpp:781-787."""

@@ -37,12 +37,27 @@ from approx_counter_tpu_torch.io.fastx import Reads
 class WindowBatch:
     """Dense sampled-window batch: ``windows[i]`` valid iff ``i < n_valid``."""
 
-    windows: np.ndarray  # uint8 [n_pad, sl+1]; start rows end in one pad col
+    windows: np.ndarray | None  # uint8 [n_pad, sl+1]; start rows end in one
+    #                             pad col; None when not gathered
     n_valid: int
+    chosen: np.ndarray | None = None  # int64 [n_valid] sampled read ids
+    #                                   (the device pool gathers by them);
+    #                                   None for streaming reservoirs
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def gather_rows(buf: np.ndarray, starts: np.ndarray, ncols: int,
+                out: np.ndarray) -> None:
+    """Gather ``len(starts)`` rows of ``ncols`` bases from ``buf`` into
+    ``out[:len(starts), :ncols]`` (native memcpy per row).  Shared by the
+    per-pass sampler and the device window pool
+    (``pipeline.Engine.build_pool``)."""
+    from approx_counter_tpu_torch.io.native import gather_windows_native
+
+    gather_windows_native(buf, starts, ncols, out)
 
 
 def sample_windows(
@@ -53,12 +68,20 @@ def sample_windows(
     rng: np.random.Generator | None = None,
     pad_to: int = 8,
     v: int = 0,
+    warn_sink: list | None = None,
+    gather: bool = True,
 ) -> WindowBatch:
     """Sample up to ``sn`` windows of the read starts (or ends).
 
     ``v`` is the reference's ``mr_v`` passed into ``sampleSequences``: at
     ``v >= 2`` every *walked* read shorter than ``sl`` emits the per-read
     stderr warning (approx_counter.cpp:449-457) in walk order.
+    ``warn_sink``: collect those warning texts instead of emitting them
+    (the pipelined driver samples the NEXT pass early and flushes its
+    warnings at the reference's point in the log).
+    ``gather=False`` skips the window gather and returns ``windows=None``:
+    the device-pool path gathers on the device by ``chosen``.  The rng
+    draws, the walk and the warnings are the same either way.
     """
     n_reads = len(reads)
     if rng is None:
@@ -93,7 +116,14 @@ def sample_windows(
             else:
                 walk_end = n_reads
         for sid in order[:walk_end][lens_walk[:walk_end] < sl]:
-            warn(short_read_warning(sid))
+            msg = short_read_warning(sid)
+            if warn_sink is not None:
+                warn_sink.append(msg)
+            else:
+                warn(msg)
+
+    if not gather:
+        return WindowBatch(windows=None, n_valid=n_valid, chosen=chosen)
 
     n_pad = max(_round_up(n_valid, pad_to), pad_to)
     windows = np.full((n_pad, width), BASE_PAD, dtype=np.uint8)
@@ -102,9 +132,5 @@ def sample_windows(
         starts = offs[chosen + 1] - 1 - sl  # suffix(seq, len-1-sl) -> sl+1 bases
     else:
         starts = offs[chosen]
-    if n_valid:
-        # rows of a strided view: one row copy per window, instead of a
-        # gather through an [n_valid, ncols] index array
-        rows = np.lib.stride_tricks.sliding_window_view(reads.buf, ncols)
-        windows[:n_valid, :ncols] = rows[starts]
-    return WindowBatch(windows=windows, n_valid=n_valid)
+    gather_rows(reads.buf, starts, ncols, windows)
+    return WindowBatch(windows=windows, n_valid=n_valid, chosen=chosen)

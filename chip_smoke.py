@@ -62,7 +62,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      vs Python ``read_fastx`` MB/s on the 44 MB FASTA, equal ``Reads``.
  12. Profile: the default run with --profile: exports byte-equal to phase
      4's warm run, the trace holds the sliced kernel; device-busy ms and
-     each end's busy share of its wall, from the trace.
+     each end's busy share of its wall, from the trace, and how many ms of
+     the start pass's device time overlap the end pass's sampling and
+     upload (the ``prefetch`` range).
  13. Multihost: the FASTA dealt round-robin into two shard files, then at
      the default parameters (a) --multihost through the CLI at one rank,
      cold and warm, exports byte-equal to ``run_pipeline_multihost`` on
@@ -73,6 +75,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      approx_counter_tpu_torch --profile``: one trace per rank, two
      nfa_sliced kernels in each) and --stream on the unsplit file export
      the same bytes.
+ 14. Dispatch: -mr 3 -v 2 at the defaults with --device-pool on, off and
+     auto (the pool used by on and auto), exports byte-equal across the
+     three, ``(pipelined)`` on every pass but the first, per-pass walls;
+     -sn 3000 -mr 2 with the pool on against ``run_pipeline`` on the CPU;
+     one end batch's upload (native gather against a strided view; the
+     sparse-N, a forced dense and the raw uint8 upload, each byte-equal,
+     with their ms); the worker thread against counting in ``finish``, in
+     turns, with their walls.
 Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and the time of the busiest limit of its text loop's SASS
 (from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
@@ -1212,33 +1222,55 @@ def phase_profile(fasta: str, out_dir: str) -> int:
         for kind in ("out", "exact"):
             same_bytes(f"{out_dir}/prof_{kind}_0.{which}",
                        f"{out_dir}/k16_warm_{kind}_0.{which}")
-    events, sliced, gpu, shares = read_trace(f"{prof}/trace.json")
+    events, sliced, gpu, shares, overlap = read_trace(f"{prof}/trace.json")
     if len(sliced) != 2:
         raise AssertionError(f"trace: {len(sliced)} nfa_sliced kernels")
+    if len(overlap) != 1:
+        raise AssertionError(f"trace: {len(overlap)} prefetch ranges, want 1")
     log(f"[profile] --profile: rc 0, exports byte-equal to the unprofiled "
         f"run, {len(events)} trace events, "
         f"{sum(e.get('cat') == 'kernel' for e in events)} kernels; "
         f"nfa_sliced {[round(e['dur'] / 1e3, 4) for e in sliced]} ms; device "
         f"busy {busy_ms(gpu):.4f} ms in all; busy per end pass: {shares}")
+    log(f"[profile] overlap: the end pass's sampling and upload (prefetch "
+        f"range, ms) against the start pass's device time inside it (ms): "
+        f"{overlap}")
     return launches
 
 
 def read_trace(path: str):
     """(events, nfa_sliced kernel events, device intervals, each end pass's
-    device-busy ms of its wall) of a ``--profile`` Chrome trace."""
+    device-busy ms of its wall, the overlap) of a ``--profile`` Chrome
+    trace.  The overlap lists, for each ``prefetch`` range (the next pass's
+    sampling and upload on the driver's thread), its ms and the device-busy
+    ms in it of work launched from other threads: the in-flight pass,
+    counting on the engine's worker thread."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     sliced = [e for e in events if e.get("cat") == "kernel"
               and "nfa_sliced" in e.get("name", "")]
-    gpu = [(e["ts"], e["ts"] + e["dur"]) for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    on_card = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    gpu = [(e["ts"], e["ts"] + e["dur"]) for e in on_card]
     ends = {e["name"].split()[0]: (e["ts"], e["ts"] + e["dur"])
             for e in events if e.get("cat") == "user_annotation"
             and e.get("name") in ("start pass", "end pass")}
     shares = {end: f"{busy_ms(gpu, lo, hi):.4f} of {(hi - lo) / 1e3:.4f} ms "
                    f"({busy_ms(gpu, lo, hi) / ((hi - lo) / 1e3):.1%})"
               for end, (lo, hi) in sorted(ends.items())}
-    return events, sliced, gpu, shares
+    launcher = {e["args"]["correlation"]: e["tid"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    overlap = []
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") == "prefetch":
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            other = [(d["ts"], d["ts"] + d["dur"]) for d in on_card
+                     if launcher.get(d.get("args", {}).get("correlation"),
+                                     e["tid"]) != e["tid"]]
+            overlap.append((round(e["dur"] / 1e3, 4),
+                            round(busy_ms(other, lo, hi), 4)))
+    return events, sliced, gpu, shares, overlap
 
 
 # A rank of the two-rank run on the card, started by torchrun: the CLI's
@@ -1472,7 +1504,7 @@ def phase_multihost(fasta: str, out_dir: str) -> dict:
                              f"\n{so[-3000:]}\n{se[-3000:]}")
     traced, busy = {}, {}
     for r in (0, 1):
-        _, sliced, _, busy[r] = read_trace(f"{prof}/trace.rank{r}.json")
+        _, sliced, _, busy[r], _ = read_trace(f"{prof}/trace.rank{r}.json")
         traced[r] = len(sliced)
     if traced != {0: 2, 1: 2}:
         raise AssertionError(f"per-rank traces: nfa_sliced kernels {traced}")
@@ -1493,6 +1525,232 @@ def phase_multihost(fasta: str, out_dir: str) -> dict:
     return {"multihost, one rank": launches,
             "multihost, two ranks": two_ranks,
             "multihost -sn 60000, one rank": id_launches}
+
+
+def pass_walls(stdout: str) -> list[float]:
+    """ms of each pass of a CLI log, in order: from its 'Working on
+    sequence' line to its 'Done'."""
+    out, t0 = [], None
+    for _, text, ms in log_lines(stdout):
+        if text.startswith("Working on sequence"):
+            t0 = ms
+        elif text == "Done" and t0 is not None:
+            out.append(round(ms - t0, 4))
+            t0 = None
+    return out
+
+
+def stats_tags(stdout: str) -> list[bool]:
+    """Per ``[stats]`` line of a -v 2 log: does it carry ``(pipelined)``?"""
+    return [" (pipelined)" in line for line in stdout.splitlines()
+            if "[stats]" in line]
+
+
+def same_run_exports(a: str, b: str, n_runs: int) -> None:
+    """Every ``<stem>_{out,exact}_<run>.<end>`` of stems ``a`` and ``b``
+    byte-equal, 4 per run."""
+    for run in range(n_runs):
+        for which in ("start", "end"):
+            for kind in ("out", "exact"):
+                same_bytes(f"{a}_{kind}_{run}.{which}",
+                           f"{b}_{kind}_{run}.{which}")
+
+
+def upload_ms(fn, reps: int = 20) -> float:
+    """Median host ms of ``fn()`` up to a synchronized card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_dispatch(fasta: str, out_dir: str) -> dict:
+    """Phase 14: the dispatch path.  (a) -mr 3 -v 2 at the defaults with
+    --device-pool on, off and auto: exports byte-equal across the three,
+    the pool used by on and auto and not by off, ``(pipelined)`` on every
+    pass but the first, per-pass walls.  (b) -sn 3000 -mr 2 with the pool
+    on against ``run_pipeline`` on the CPU: byte-equal.  (c) The upload
+    alone on a default end batch: the sampler's native gather against a
+    strided view (equal rows, ms), ``device_windows`` sparse, dense (the
+    batch given 5,000 Ns, so past the 4,096 of the sparse list) and the raw
+    uint8 copy and transpose: each byte-equal to the batch, ms, and the
+    sparse upload's parts.  (d) The worker thread against counting in
+    ``finish`` (``Engine.threaded``), in turns (a b b a) x 3 at -mr 3 with
+    the pool off and auto: exports equal, passes 2-6 and whole-CLI walls.
+    Returns the kernel launches of (a) by run."""
+    import torch
+
+    from approx_counter_tpu_torch import pipeline
+    from approx_counter_tpu_torch.config.cli import resolve_params
+    from approx_counter_tpu_torch.core.codec import BASE_N, NCAP
+    from approx_counter_tpu_torch.io.fastx import read_fastx
+    from approx_counter_tpu_torch.params import Params
+    from approx_counter_tpu_torch.sample.sampler import (
+        gather_rows,
+        sample_windows,
+    )
+
+    seen = {"pool": 0, "dense": 0}
+    start_pool, pack_dense = (pipeline.Engine.start_pass_pool,
+                              pipeline.pack_windows_host)
+
+    def pool_pass(self, *a, **kw):
+        seen["pool"] += 1
+        return start_pool(self, *a, **kw)
+
+    def dense(*a, **kw):
+        seen["dense"] += 1
+        return pack_dense(*a, **kw)
+
+    def cli(stem, *extra):
+        return run_cli([fasta, "-o", f"{out_dir}/{stem}_out", "-e",
+                        f"{out_dir}/{stem}_exact", "--seed", "5", *extra])
+
+    pipeline.Engine.start_pass_pool = pool_pass
+    pipeline.pack_windows_host = dense
+    launches = {}
+    try:
+        for mode in ("on", "off", "auto"):
+            reset_launch_counts()
+            seen.update(pool=0, dense=0)
+            t0 = time.perf_counter()
+            rc, stdout = cli(f"mr3{mode}", "-mr", "3", "-v", "2",
+                             "--device-pool", mode)
+            wall = time.perf_counter() - t0
+            n = launch_counts()["nfa_sliced"]
+            launches[f"-mr 3 --device-pool {mode}"] = n
+            tags = stats_tags(stdout)
+            if rc != 0 or n != 6:
+                raise AssertionError(f"-mr 3 --device-pool {mode}: rc {rc}, "
+                                     f"{n} launches\n{stdout[-2000:]}")
+            if seen["pool"] != (0 if mode == "off" else 6):
+                raise AssertionError(f"--device-pool {mode}: {seen['pool']} "
+                                     f"pool passes")
+            if tags != [False] + [True] * 5:
+                raise AssertionError(f"--device-pool {mode}: tags {tags}")
+            if mode != "on":
+                same_run_exports(f"{out_dir}/mr3on", f"{out_dir}/mr3{mode}", 3)
+            log(f"[dispatch] -mr 3 -v 2 --device-pool {mode}: rc 0, 6 "
+                f"launches, {seen['pool']} pool passes, "
+                f"{seen['dense']} dense uploads (the pool's own build "
+                f"included), (pipelined) on passes 2-6; per-pass walls "
+                f"{pass_walls(stdout)} ms, whole CLI {wall:.4f} s")
+        log("[dispatch] -mr 3: exports byte-equal with the pool on, off and "
+            "auto (12 files each)")
+
+        seen.update(pool=0, dense=0)
+        rc, _ = cli("mr2gpu", "-sn", "3000", "-mr", "2", "--device-pool",
+                    "on")
+        if rc != 0 or seen["pool"] != 4:
+            raise AssertionError(f"-sn 3000 -mr 2 on the card: rc {rc}, "
+                                 f"{seen['pool']} pool passes")
+        prm = resolve_params([fasta, "-o", f"{out_dir}/mr2cpu_out", "-e",
+                              f"{out_dir}/mr2cpu_exact", "--seed", "5",
+                              "-sn", "3000", "-mr", "2"])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = pipeline.run_pipeline(prm, device=torch.device("cpu"))
+        if rc != 0:
+            raise AssertionError(f"CPU run_pipeline -sn 3000 -mr 2: rc {rc}")
+        same_run_exports(f"{out_dir}/mr2gpu", f"{out_dir}/mr2cpu", 2)
+        log(f"[dispatch] -sn 3000 -mr 2: the card's pool run byte-equal to "
+            f"run_pipeline on the CPU (8 files; CPU "
+            f"{time.perf_counter() - t0:.1f} s)")
+    finally:
+        pipeline.Engine.start_pass_pool = start_pool
+        pipeline.pack_windows_host = pack_dense
+
+    # (c) the upload alone, on a default end batch
+    reads = read_fastx(fasta)
+    batch = sample_windows(reads, 40000, 100, end=True,
+                           rng=np.random.default_rng(5), pad_to=1)
+    wins, n_valid = batch.windows, batch.n_valid
+    starts = reads.offsets[batch.chosen + 1] - 1 - 100
+    rows = np.lib.stride_tricks.sliding_window_view(reads.buf, 101)
+    out = np.full_like(wins, 5)
+    gather_rows(reads.buf, starts, 101, out)
+    if not (np.array_equal(out, wins) and np.array_equal(rows[starts], wins)):
+        raise AssertionError("gather_rows != the strided view's rows")
+    gathers = {}
+    for name in ("native", "strided", "strided", "native"):
+        if name == "native":
+            t = upload_ms(lambda: gather_rows(reads.buf, starts, 101, out))
+        else:
+            t = upload_ms(lambda: rows[starts])
+        gathers.setdefault(name, []).append(round(t, 4))
+    engine = pipeline.Engine(Params(), torch.device("cuda"))
+    many_n = wins.copy()
+    rng = np.random.default_rng(14)
+    many_n[rng.integers(0, n_valid, 5000), rng.integers(0, 101, 5000)] = BASE_N
+    if (many_n[:n_valid] == BASE_N).sum() <= NCAP:
+        raise AssertionError("the forced dense batch has too few Ns")
+    uploads = {}
+    for what, b in (("sparse" if (wins == BASE_N).sum() <= NCAP
+                     else "dense (its own Ns)", wins), ("dense", many_n)):
+        got, mask = engine.device_windows(b, n_valid)
+        if not (np.array_equal(got.cpu().numpy(), b.T)
+                and int(mask.sum()) == n_valid):
+            raise AssertionError(f"device_windows {what}: not the batch")
+        uploads[what] = round(upload_ms(
+            lambda b=b: engine.device_windows(b, n_valid)), 4)
+    raw = upload_ms(lambda: torch.from_numpy(wins).to("cuda").t().contiguous())
+    packed = pipeline.pack_windows_sparse_native(wins, n_valid, 101, NCAP)
+    parts = {
+        "native pack": upload_ms(lambda: pipeline.pack_windows_sparse_native(
+            wins, n_valid, 101, NCAP)),
+        "pinned copy + H2D": upload_ms(lambda: engine._upload(*packed)),
+        "unpack": upload_ms(lambda: pipeline.unpack_windows_sparse_t(
+            *engine._upload(*packed), n_valid, 101, 101)),
+    }
+    parts["unpack"] -= parts["pinned copy + H2D"]
+    build = upload_ms(lambda: engine.build_pool(reads, 100), reps=5)
+    pool = engine._pool
+    shipped = {"raw": wins.nbytes, "sparse": sum(a.nbytes for a in packed),
+               "pool index": pipeline.pool_index(
+                   pool["inv"], batch.chosen, n_valid, pool["E"]).nbytes}
+    log(f"[dispatch] upload of one end batch [{wins.shape[0]}, 101], "
+        f"{int((wins == BASE_N).sum())} Ns: gather ms native / strided view "
+        f"{gathers} (rows equal); device_windows ms {uploads} (each "
+        f"byte-equal to the batch; the forced one has "
+        f"{int((many_n[:n_valid] == BASE_N).sum())} Ns), the sparse one's "
+        f"parts {json.dumps({k: round(v, 4) for k, v in parts.items()})}; "
+        f"raw uint8 copy + transpose {raw:.4f} ms; bytes shipped per pass "
+        f"{shipped}; pool build ({pool['E']} rows, both ends) {build:.4f} ms")
+
+    # (d) worker thread (a) against counting in finish (b), in turns
+    for pool in ("off", "auto"):
+        walls = {True: [], False: []}
+        try:
+            for i, threaded in enumerate((True, False, False, True) * 3):
+                pipeline.Engine.threaded = threaded
+                t0 = time.perf_counter()
+                rc, stdout = cli(f"thr{pool}{i}", "-mr", "3", "-v", "2",
+                                 "--device-pool", pool)
+                wall = time.perf_counter() - t0
+                if rc != 0:
+                    raise AssertionError(f"threaded={threaded}: rc {rc}")
+                same_run_exports(f"{out_dir}/mr3off",
+                                 f"{out_dir}/thr{pool}{i}", 3)
+                walls[threaded].append((sum(pass_walls(stdout)[1:]), wall))
+        finally:
+            pipeline.Engine.threaded = True
+        log(f"[dispatch] -mr 3 --device-pool {pool}, (a b b a) x 3, exports "
+            f"byte-equal: passes 2-6 summed (ms) / whole CLI (s), worker "
+            f"thread (a) {[(round(p, 4), round(w, 4)) for p, w in walls[True]]}"
+            f", counting in finish (b) "
+            f"{[(round(p, 4), round(w, 4)) for p, w in walls[False]]}; "
+            f"medians a {np.median([p for p, _ in walls[True]]):.4f} ms / "
+            f"{np.median([w for _, w in walls[True]]):.4f} s, b "
+            f"{np.median([p for p, _ in walls[False]]):.4f} ms / "
+            f"{np.median([w for _, w in walls[False]]):.4f} s")
+    return launches
 
 
 def main_ranks(n: int) -> int:
@@ -1578,6 +1836,7 @@ def main(argv: list[str] | None = None) -> int:
         phase_stream(fasta, tmp)
         phase_profile(fasta, tmp)
         paths["nfa_sliced"].update(phase_multihost(fasta, tmp))
+        paths["nfa_sliced"].update(phase_dispatch(fasta, tmp))
     checks = phase_gpu_check()
     for name in ("bpm_myers", "bpm_packed", "nfa_packed"):
         paths[name] = {"gpu_check": checks[name]}

@@ -35,7 +35,7 @@ from approx_counter_tpu_torch.dist.multihost import (  # noqa: E402
 from approx_counter_tpu_torch.io.fastx import Reads  # noqa: E402
 from approx_counter_tpu_torch.params import Params  # noqa: E402
 from test_torch_modes import _normalize  # noqa: E402
-from test_torch_pipeline import _write_fasta  # noqa: E402
+from test_torch_pipeline import _write_fasta, jax_numpy_paths  # noqa: E402,F401
 
 PAD = np.uint64(0xFFFFFFFFFFFFFFFF)
 

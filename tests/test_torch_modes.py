@@ -29,15 +29,19 @@ from approx_counter_tpu.pipeline import run_pipeline as jax_run  # noqa: E402
 from approx_counter_tpu_torch.__main__ import run as torch_cli_run  # noqa: E402
 from approx_counter_tpu_torch.params import Params  # noqa: E402
 from approx_counter_tpu_torch.pipeline import run_pipeline  # noqa: E402
-from test_torch_pipeline import _strip_ms, _write_fasta  # noqa: E402
+from test_torch_pipeline import (  # noqa: E402,F401
+    _strip_ms,
+    _write_fasta,
+    jax_numpy_paths,
+)
 
 
 def _normalize(stdout: str) -> str:
-    """Timestamps stripped; at -v 2 the ``[stats]`` lines keep only their
-    tag (their numbers are times, and the JAX package marks its pipelined
-    passes there)."""
-    return re.sub(r"^(\t*)\[stats\].*$", r"\1[stats]", _strip_ms(stdout),
-                  flags=re.M)
+    """Timestamps stripped; at -v 2 the numbers of the ``[stats]`` lines
+    (times and rates) become ``#``, and their `` (pipelined)`` tag stays."""
+    return re.sub(r"^\t*\[stats\].*$",
+                  lambda line: re.sub(r"\d[\d.e+-]*", "#", line.group()),
+                  _strip_ms(stdout), flags=re.M)
 
 
 def run_both(tmp_path, capsys, input_file, **kw):
@@ -76,6 +80,45 @@ def _random_fasta(path, seed, n_reads, read_len):
         for i in range(n_reads):
             s = "".join("ACGT"[c] for c in rng.integers(0, 4, read_len))
             f.write(f">r{i}\n{s}\n")
+
+
+# --- pipelined passes: the [stats] tag --------------------------------------
+
+
+@pytest.mark.parametrize("case,prm,n_tagged", [
+    # in memory: every pass after the first was prefetched, the next run's
+    # start pass included
+    ("mr2", dict(nb_of_runs=2), 3),
+    # -se at -v 2: the break fires, one pass, nothing to prefetch
+    ("se_quirks", dict(skip_end=True, compat_quirks=True), 0),
+    # streaming prefetches the end pass within a run, never across runs
+    ("stream_mr2", dict(stream=True, nb_of_runs=2), 2),
+    # resume passes are not pipelined
+    ("from_exact", dict(), 0),
+])
+def test_stats_tags_match_jax(tmp_path, capsys, case, prm, n_tagged):
+    """At -v 2 the ``[stats]`` lines carry `` (pipelined)`` on exactly the
+    passes the JAX package prefetched; reads shorter than ``sl`` make the
+    sampler warn, and the prefetched passes' warnings come out deferred,
+    at the reference's point in stderr."""
+    fasta = tmp_path / "reads.fasta"
+    _write_fasta(fasta, 21, 40, 15, 150, n_frac=0.01)
+    prm = dict(prm, k=9, sl=30, sn=12, limit=15, v=2, seed=6)
+    if case == "from_exact":
+        prm["from_exact"] = str(_prior_export(tmp_path, capsys, fasta,
+                                              dict(prm, v=0)))
+    want, got = run_both(tmp_path, capsys, fasta, **prm)
+    n_files = (2 if case == "from_exact" else 4) * prm.get("nb_of_runs", 1)
+    if case == "se_quirks":
+        n_files = 2
+    assert_same(want, got, n_files)
+    stats = [ln for ln in got[1].splitlines() if "[stats]" in ln]
+    assert len(stats) == n_files // (1 if case == "from_exact" else 2)
+    assert all(ln.endswith("[stats] sample # ms | count+score # ms"
+                           + " (pipelined)" * (" (pipelined)" in ln)
+                           + " | # windows/s | # pairs/s") for ln in stats)
+    assert sum(" (pipelined)" in ln for ln in stats) == n_tagged
+    assert "Cut size is longer that current read!" in got[2]
 
 
 # --- solid mode ---------------------------------------------------------

@@ -129,13 +129,25 @@ def run_ranks(n, runs):
     return by_run
 
 
+#: The JAX worker on the JAX package's numpy paths: as the in-process
+#: tests' ``jax_numpy_paths`` fixture does, its native library reports
+#: itself not built, since ``tests/test_io.py`` may be writing it meanwhile.
+_IMPORT = "from approx_counter_tpu.params import Params\n"
+assert JAX_WORKER.count(_IMPORT) == 1
+JAX_NUMPY_WORKER = JAX_WORKER.replace(_IMPORT, (
+    "import approx_counter_tpu.io.native as _native\n"
+    "def _not_built():\n"
+    "    raise ImportError('native library not used')\n"
+    "_native._load = _not_built\n") + _IMPORT)
+
+
 def run_jax_ranks(n, paths, out, exact, sn, v):
     """The JAX package's multihost orchestrator on ``n`` jax.distributed
     processes (tests/test_multiprocess.py's worker)."""
     port = str(_free_port())
     env = {k: v_ for k, v_ in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    script = [sys.executable, "-c", JAX_WORKER]
+    script = [sys.executable, "-c", JAX_NUMPY_WORKER]
     tail = [port, REPO, ",".join(paths), out, exact, str(sn), str(v)]
     return _communicate([
         subprocess.Popen(script + [str(pid), str(n)] + tail, env=env,

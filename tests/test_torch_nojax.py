@@ -3,7 +3,8 @@
 A subprocess blocks ``jax`` and the JAX package (``sys.modules[name] =
 None`` makes their import fail), imports every module of
 ``approx_counter_tpu_torch`` (the three of ``dist/`` among them) and runs a
-tiny ``run_pipeline`` and ``run_pipeline_multihost`` on the CPU.
+tiny ``run_pipeline`` (once more at ``-mr 2`` through the device window
+pool) and ``run_pipeline_multihost`` on the CPU.
 It guards against an import chain such as the JAX package's
 ``io/fastx.py`` -> ``core/__init__.py`` -> ``core/complexity.py`` ->
 ``jax.numpy``.
@@ -44,6 +45,12 @@ SCRIPT = textwrap.dedent(r"""
                  v=0, seed=1)
     assert run_pipeline(prm, device="cpu") == 0
     assert os.path.getsize(os.path.join(tmp, "o_0.start")) > 0
+    # pipelined passes through the device window pool and the upload path
+    prm.output, prm.nb_of_runs, prm.device_pool = (
+        os.path.join(tmp, "pool"), 2, "on")
+    assert run_pipeline(prm, device="cpu") == 0
+    assert os.path.getsize(os.path.join(tmp, "pool_1.end")) > 0
+    prm.nb_of_runs, prm.device_pool = 1, "auto"
     prm.output, prm.multihost = os.path.join(tmp, "mh"), True
     assert run_pipeline_multihost(prm, device="cpu") == 0
     assert os.path.getsize(os.path.join(tmp, "mh_0.start")) > 0

@@ -84,14 +84,22 @@ def test_gpu_check_rows_all_ok_on_cpu():
     names = [name for name, _ in rows]
     assert len(names) == len(set(names))
     # 20 (k, maxerr) configs x (sliced, myers, packed), exact stage, 4
-    # whole passes (top-N and solid), the resume pass, the multihost step
+    # whole passes (top-N and solid), the resume pass, the multihost step,
+    # the window upload's round trips, the pool passes
     assert sum("nfa-p1 " in n for n in names) == 20
     assert sum("myers-p4" in n for n in names) == 8   # k in {2, 8}
     assert sum("nfa-p16" in n for n in names) == 4    # k = 2
-    assert names[-7:] == ["exact stage k= 8 vs oracle",
-                          "whole pass k= 8 top-N vs oracle",
-                          "whole pass k=17 top-N vs oracle",
-                          "whole pass k= 8 -sk 2 vs oracle",
-                          "whole pass k=17 -sk 2 vs oracle",
-                          "resume pass k= 9 (a repeated code) vs oracle",
-                          "mesh full step (all-reduced counts) vs oracle"]
+    assert names[-14:] == ["exact stage k= 8 vs oracle",
+                           "whole pass k= 8 top-N vs oracle",
+                           "whole pass k=17 top-N vs oracle",
+                           "whole pass k= 8 -sk 2 vs oracle",
+                           "whole pass k=17 -sk 2 vs oracle",
+                           "resume pass k= 9 (a repeated code) vs oracle",
+                           "mesh full step (all-reduced counts) vs oracle",
+                           "sparse-N window unpack round trip",
+                           "dense window unpack round trip",
+                           "transposed sparse unpack round trip",
+                           "device_windows sparse upload round trip",
+                           "device_windows dense upload round trip",
+                           "pool-path pass end=0 vs oracle",
+                           "pool-path pass end=1 vs oracle"]

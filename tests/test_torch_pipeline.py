@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from approx_counter_tpu.io import native as jax_native  # noqa: E402
 from approx_counter_tpu.params import Params as JaxParams  # noqa: E402
 from approx_counter_tpu.pipeline import run_pipeline as jax_run  # noqa: E402
 from approx_counter_tpu_torch.__main__ import main as torch_main  # noqa: E402
@@ -21,6 +22,21 @@ from approx_counter_tpu_torch.params import Params  # noqa: E402
 from approx_counter_tpu_torch.pipeline import run_pipeline  # noqa: E402
 
 ADAPTER = "ACGTCCTAGCATTGCAGGATCCAT"
+
+
+@pytest.fixture(autouse=True)
+def jax_numpy_paths(monkeypatch):
+    """The JAX package runs on its numpy paths here: its native library,
+    ``native/libfastx.so``, reports itself not built.  That library is
+    built while the suite runs (``tests/test_io.py``), and a JAX run in
+    another worker could load it half-written.  The JAX package's own
+    tests hold its native and numpy paths equal.  The port's test files
+    that run the JAX package import this fixture."""
+    def not_built():
+        raise ImportError("the JAX package's native library is not used "
+                          "by the port's tests")
+
+    monkeypatch.setattr(jax_native, "_load", not_built)
 
 
 def _write_fasta(path, seed, n_reads, len_lo, len_hi, n_frac=0.0,

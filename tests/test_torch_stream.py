@@ -26,7 +26,11 @@ from approx_counter_tpu.io.fastx import read_fastx_py as jax_read_py  # noqa: E4
 from approx_counter_tpu_torch.io import stream  # noqa: E402
 from approx_counter_tpu_torch.io.fastx import read_fastx, read_fastx_py  # noqa: E402
 from test_torch_modes import assert_same, run_both  # noqa: E402
-from test_torch_pipeline import ADAPTER, _write_fasta  # noqa: E402
+from test_torch_pipeline import (  # noqa: E402,F401
+    ADAPTER,
+    _write_fasta,
+    jax_numpy_paths,
+)
 
 
 def _write_fastq(path, seed, n_reads, len_lo, len_hi, wrap=None,
