@@ -1,10 +1,11 @@
 """ctypes binding to the port's native FASTA/FASTQ parser.
 
 Port of ``approx_counter_tpu/io/native.py``: the whole-file and the chunk
-parser, the window gather and the sparse-N window packer.  The library is built from ``csrc/fastx_parser.cpp`` by
-``g++`` at first use (``kernels/_build.py:host_build``), never when this
-module is imported; a missing ``g++`` or a failed build raises, and there is
-no fallback to the Python parser.
+parser, the window gather and the sparse-N window packer.  The library is
+built from ``csrc/fastx_parser.cpp`` by ``g++`` at first use
+(``kernels/_build.py:host_build``), never when this module is imported; a
+missing ``g++`` or a failed build raises, and there is no fallback to the
+Python parser.
 """
 
 from __future__ import annotations
