@@ -81,8 +81,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      -sn 3000 -mr 2 with the pool on against ``run_pipeline`` on the CPU;
      one end batch's upload (native gather against a strided view; the
      sparse-N, a forced dense and the raw uint8 upload, each byte-equal,
-     with their ms); the worker thread against counting in ``finish``, in
-     turns, with their walls.
+     with their ms).
 Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and the time of the busiest limit of its text loop's SASS
 (from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
@@ -99,6 +98,12 @@ before them gives them path by path.
 With ``--ranks N`` the script runs only phase 13's check of N ranks under
 torchrun against the same N ranks on the CPU, rank r on card r (NCCL for
 CUDA tensors when every rank has a card), on N shards of the FASTA.
+
+With ``--walls R`` it runs only the dispatch path's walls: R rounds of the
+default run and of -mr 3 -v 2 with --device-pool off and auto, each run's
+exports byte-equal to the first round's, and prints a ``[walls]`` JSON line
+of each run's per-pass walls (ms) and whole-CLI wall (s).  Run it in two
+checkouts in turns (a b b a) to compare two versions of the path.
 
 Imports nothing of JAX.  Exits 1 when no CUDA device is present.
 """
@@ -1556,6 +1561,20 @@ def same_run_exports(a: str, b: str, n_runs: int) -> None:
                            f"{b}_{kind}_{run}.{which}")
 
 
+def exports_digest(stem: str) -> str:
+    """sha256 over every ``<stem>_*`` export and its name past the stem, in
+    name order: equal digests from two checkouts mean byte-equal exports."""
+    import glob
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in sorted(glob.glob(f"{stem}_*")):
+        h.update(path[len(stem):].encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
 def upload_ms(fn, reps: int = 20) -> float:
     """Median host ms of ``fn()`` up to a synchronized card."""
     import torch
@@ -1581,10 +1600,7 @@ def phase_dispatch(fasta: str, out_dir: str) -> dict:
     strided view (equal rows, ms), ``device_windows`` sparse, dense (the
     batch given 5,000 Ns, so past the 4,096 of the sparse list) and the raw
     uint8 copy and transpose: each byte-equal to the batch, ms, and the
-    sparse upload's parts.  (d) The worker thread against counting in
-    ``finish`` (``Engine.threaded``), in turns (a b b a) x 3 at -mr 3 with
-    the pool off and auto: exports equal, passes 2-6 and whole-CLI walls.
-    Returns the kernel launches of (a) by run."""
+    sparse upload's parts.  Returns the kernel launches of (a) by run."""
     import torch
 
     from approx_counter_tpu_torch import pipeline
@@ -1724,33 +1740,41 @@ def phase_dispatch(fasta: str, out_dir: str) -> dict:
         f"raw uint8 copy + transpose {raw:.4f} ms; bytes shipped per pass "
         f"{shipped}; pool build ({pool['E']} rows, both ends) {build:.4f} ms")
 
-    # (d) worker thread (a) against counting in finish (b), in turns
-    for pool in ("off", "auto"):
-        walls = {True: [], False: []}
-        try:
-            for i, threaded in enumerate((True, False, False, True) * 3):
-                pipeline.Engine.threaded = threaded
+    return launches
+
+
+def main_walls(rounds: int) -> None:
+    """``--walls R``: the dispatch path's walls, R rounds."""
+    walls: dict = {}
+    digest: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "reads.fasta")
+        write_fasta(fasta, 50000, seed=5)
+        for r in range(rounds):
+            for name, tag, extra in (
+                    ("default", "d", ()),
+                    ("-mr 3 pool off", "off", ("-mr", "3", "--device-pool",
+                                                "off")),
+                    ("-mr 3 pool auto", "auto", ("-mr", "3", "--device-pool",
+                                                 "auto"))):
+                stem = f"{tmp}/{tag}{r}"
                 t0 = time.perf_counter()
-                rc, stdout = cli(f"thr{pool}{i}", "-mr", "3", "-v", "2",
-                                 "--device-pool", pool)
+                rc, stdout = run_cli([fasta, "-o", f"{stem}_out", "-e",
+                                      f"{stem}_exact", "--seed", "5", "-v",
+                                      "2", *extra])
                 wall = time.perf_counter() - t0
                 if rc != 0:
-                    raise AssertionError(f"threaded={threaded}: rc {rc}")
-                same_run_exports(f"{out_dir}/mr3off",
-                                 f"{out_dir}/thr{pool}{i}", 3)
-                walls[threaded].append((sum(pass_walls(stdout)[1:]), wall))
-        finally:
-            pipeline.Engine.threaded = True
-        log(f"[dispatch] -mr 3 --device-pool {pool}, (a b b a) x 3, exports "
-            f"byte-equal: passes 2-6 summed (ms) / whole CLI (s), worker "
-            f"thread (a) {[(round(p, 4), round(w, 4)) for p, w in walls[True]]}"
-            f", counting in finish (b) "
-            f"{[(round(p, 4), round(w, 4)) for p, w in walls[False]]}; "
-            f"medians a {np.median([p for p, _ in walls[True]]):.4f} ms / "
-            f"{np.median([w for _, w in walls[True]]):.4f} s, b "
-            f"{np.median([p for p, _ in walls[False]]):.4f} ms / "
-            f"{np.median([w for _, w in walls[False]]):.4f} s")
-    return launches
+                    raise AssertionError(f"{name}: rc {rc}\n{stdout[-2000:]}")
+                if r:
+                    same_run_exports(f"{tmp}/{tag}0", stem, 3 if extra else 1)
+                else:
+                    digest[name] = exports_digest(stem)
+                walls.setdefault(name, []).append(
+                    {"passes_ms": pass_walls(stdout), "cli_s": round(wall, 4)})
+    if digest["-mr 3 pool off"] != digest["-mr 3 pool auto"]:
+        raise AssertionError("-mr 3: the pool changed the exports")
+    log(f"[walls] exports sha256 {json.dumps(digest)}")
+    log(f"[walls] {json.dumps(walls)}")
 
 
 def main_ranks(n: int) -> int:
@@ -1786,6 +1810,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--ranks", type=int, default=0,
                     help="run only phase 13's ranks-vs-CPU check at N ranks, "
                          "one card each")
+    ap.add_argument("--walls", type=int, default=0,
+                    help="run only R rounds of the dispatch path's walls")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1805,6 +1831,17 @@ def main(argv: list[str] | None = None) -> int:
         nfa_sliced_build(16, MAIN["maxerr"])
         host_build("fastx_parser")
         main_ranks(args.ranks)
+        print(ok_line())
+        return 0
+    if args.walls:
+        from approx_counter_tpu_torch.kernels._build import (
+            host_build,
+            nfa_sliced_build,
+        )
+
+        nfa_sliced_build(16, MAIN["maxerr"])
+        host_build("fastx_parser")
+        main_walls(args.walls)
         print(ok_line())
         return 0
     clock_hz = max_sm_clock_hz()

@@ -98,6 +98,31 @@ def test_exact_count_select_matches_jax(k, param_lc, with_forbidden):
         got["sel_counts"].numpy().astype(np.uint64), want["counts"])
 
 
+@pytest.mark.parametrize("n_rows", [0, 6])
+def test_exact_stage_counts_the_int64_max_code(n_rows):
+    """At k = 32 the code C T^31 is INT64_MAX (and T^32 is -1): ``n_rows``
+    windows hold it among Ns, pads and invalid rows, and it is counted and
+    selected as the JAX package counts and selects it."""
+    k, m = 32, 41
+    wins_t, row_mask = _windows(77, m=m, pair=(2, 3))
+    wins = np.ascontiguousarray(wins_t.T)
+    wins[:n_rows] = 3
+    wins[:n_rows, 0] = 1
+    wins_t = np.ascontiguousarray(wins.T)
+    lc_thr = 1 << 30  # no code is low-complexity: poly-T stays in
+    want = _jax_select(wins_t, row_mask, k, lc_thr, np.empty(0, np.uint64), 40)
+    got = exact_count_select(
+        interop.windows_to_torch(wins_t), interop.mask_to_torch(row_mask), k,
+        lc_thr, torch.empty(0, dtype=torch.int64), 40)
+    for key in ("n_unique", "n_pass", "n_keep", "had_n"):
+        assert got[key] == want[key], key
+    codes = got["sel_codes"].numpy()
+    np.testing.assert_array_equal(codes.view(np.uint64), want["codes"])
+    np.testing.assert_array_equal(
+        got["sel_counts"].numpy().astype(np.uint64), want["counts"])
+    assert (np.iinfo(np.int64).max in codes) == bool(n_rows)
+
+
 @pytest.mark.parametrize("k", range(2, 33))
 def test_dimer_sum_matches_numpy(k):
     """At k = 32 the last dimer spans bits 60-63, read through an

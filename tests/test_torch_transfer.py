@@ -254,26 +254,24 @@ def test_a_failed_pass_raises_from_finish(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("o_*"))
 
 
-def test_threaded_and_inline_passes_agree(tmp_path, capsys, monkeypatch):
-    """The worker thread (the default) and counting in ``finish`` give the
-    same exports and the same stdout, ``(pipelined)`` tags included."""
-    from test_torch_modes import _normalize
-    from test_torch_pipeline import _write_fasta
+def test_count_one_end_counts_on_the_callers_thread(monkeypatch):
+    """``count_one_end`` (the multihost step's pass) counts on the calling
+    thread, where ``start_pass`` counts on the worker; both give the same."""
+    import threading
 
-    fasta = tmp_path / "reads.fasta"
-    _write_fasta(fasta, 16, 60, 20, 160, n_frac=0.01)
-    got = {}
-    for threaded in (True, False):
-        monkeypatch.setattr(Engine, "threaded", threaded)
-        d = tmp_path / str(threaded)
-        d.mkdir()
-        assert run_pipeline(Params(input_file=str(fasta),
-                                   output=str(d / "o"), exact_out=str(d / "e"),
-                                   k=8, sl=30, sn=20, limit=10, v=2, seed=4,
-                                   nb_of_runs=2), device="cpu") == 0
-        out = capsys.readouterr()
-        got[threaded] = (_normalize(out.out), out.err,
-                         {p.name: p.read_bytes() for p in sorted(d.iterdir())})
-    assert got[True] == got[False]
-    assert got[True][0].count(" (pipelined)") == 3
-    assert len(got[True][2]) == 8
+    engine = Engine(Params(k=5, sl=20, limit=7), "cpu")
+    count, threads = Engine._count, []
+
+    def spy(self, *args):
+        threads.append(threading.current_thread())
+        return count(self, *args)
+
+    monkeypatch.setattr(Engine, "_count", spy)
+    batch = sampled_batch(15, 8, 21, 8, True)
+    inline = engine.count_one_end(batch, 8)
+    pending = engine.start_pass(batch, 8).finish()
+    assert threads[0] is threading.current_thread() is not threads[1]
+    for a, b in zip(inline[:2], pending[:2]):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+    assert inline[2] == pending[2]
