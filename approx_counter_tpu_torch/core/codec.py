@@ -45,6 +45,21 @@ def seq_to_codes(seq: str | bytes) -> np.ndarray:
     return _CHAR_TO_CODE[raw]
 
 
+def codes_to_seq(codes: np.ndarray) -> str:
+    """uint8 ordinal array -> ASCII DNA string (4 -> 'N')."""
+    return _CODE_TO_CHAR[np.asarray(codes, dtype=np.uint8)].tobytes().decode("ascii")
+
+
+def is_dna(seq: str | bytes | np.ndarray) -> bool:
+    """True iff the sequence is pure ACGT (case-insensitive).
+
+    Mirrors ``is_DNA`` (approx_counter.cpp:313-321): any symbol with
+    ordinal >= 4 (N or other IUPAC) fails.
+    """
+    codes = seq if isinstance(seq, np.ndarray) else seq_to_codes(seq)
+    return bool(np.all(codes < BASE_N))
+
+
 def encode_kmer(seq: str | bytes | np.ndarray) -> int:
     """Pack a pure-ACGT k-mer into an int, first base in the high bits.
 
@@ -57,6 +72,21 @@ def encode_kmer(seq: str | bytes | np.ndarray) -> int:
     for c in codes:
         value = (value << 2) | int(c)
     return value
+
+
+def decode_kmer(value: int, k: int) -> str:
+    """Unpack an int code back to a k-length DNA string.
+
+    Mirrors ``int2dna`` (approx_counter.cpp:70-78): consume low 2 bits per
+    base, prepending.  A negative int64 code (bit 63 set, k = 32) decodes
+    to the same bases as its uint64 value.
+    """
+    value = int(value)
+    out = []
+    for _ in range(k):
+        out.append(_DNA[value & 3])
+        value >>= 2
+    return "".join(reversed(out))
 
 
 def decode_kmers(values: np.ndarray, k: int) -> list[str]:

@@ -93,3 +93,26 @@ def dimer_sum_np(codes: np.ndarray, k: int) -> np.ndarray:
         )
         v >>= np.uint64(2)
     return np.sum(counts * (counts - 1), axis=-1)
+
+
+def complexity_score(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """float32 DUST score per int64 code, bit-exact against the C++ float:
+    ``score_table(k)`` (host IEEE divisions) looked up at ``dimer_sum``."""
+    table = torch.from_numpy(score_table(k)).to(codes.device)
+    return table[dimer_sum(codes, k).long()]
+
+
+def complexity_score_np(codes: np.ndarray, k: int) -> np.ndarray:
+    """NumPy host-side twin of :func:`complexity_score` over uint64 codes."""
+    return score_table(k)[dimer_sum_np(codes, k)]
+
+
+def have_low_complexity(codes: torch.Tensor, k: int,
+                        threshold: float) -> torch.Tensor:
+    """Boolean low-complexity test per int64 code: score >= threshold ==>
+    reject.
+
+    Matches ``haveLowComplexity`` (approx_counter.cpp:214-234) including the
+    k == 2 never-rejects NaN quirk.
+    """
+    return dimer_sum(codes, k) >= lc_sum_threshold(threshold, k)

@@ -1,3 +1,13 @@
 """Counting across ranks over ``torch.distributed``: the port of the JAX
 package's ``dist/`` (distributed bottom-k sampling, window-sharded counts
-with an all-reduce, and the ``--multihost`` orchestrator)."""
+with an all-reduce, and the ``--multihost`` orchestrator).
+
+The JAX package's ``data_mesh`` and ``shard_windows`` place arrays on a
+device mesh; here ``initialize`` joins the process group and
+``gather_windows`` all-gathers the ranks' window batches."""
+
+from approx_counter_tpu_torch.dist.mesh import (  # noqa: F401
+    approx_counts_sharded,
+    gather_windows,
+    initialize,
+)

@@ -34,6 +34,10 @@ Checks:
     (``start_pass_pool``) at each end (k=8, 41 of 60 reads, limit 37)
     against the oracle pipeline.
 
+``kernel_runs`` (every kernel configuration for a k) and
+``searchscheme_case`` (adversarial windows for the search-scheme oracle)
+also serve ``chip_smoke.py``'s search-scheme phase and the tests.
+
 Every count is an integer and every comparison exact.  Prints one row per
 check, then ``GPU-CHECK PASS`` or ``GPU-CHECK FAIL (n)``; exits 1 on any
 failure or when no CUDA device is present.  Writes no file.
@@ -41,6 +45,7 @@ failure or when no CUDA device is present.  Writes no file.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
@@ -67,6 +72,7 @@ from approx_counter_tpu_torch.kernels.bpm import (
     approx_counts,
     approx_counts_myers,
     approx_counts_packed,
+    approx_counts_packed_ref,
     approx_counts_ref,
     build_peq,
 )
@@ -83,6 +89,77 @@ from approx_counter_tpu_torch.pipeline import Engine
 KS = (2, 8, 16, 31, 32)
 
 
+def kernel_runs(k: int) -> list[tuple[str, object, object]]:
+    """(name, wrapper, plain version) of every approximate-count kernel
+    configuration that takes k: the sliced level NFA, unpacked Myers, packed
+    Myers at pack 2 and 4 and the packed NFA at pack 1, 2, 4, 8 and 16,
+    wherever k <= 32 / pack (named ``sliced``, ``myers``, ``myers-p<pack>``
+    and ``nfa-p<pack>``).  Each callable takes ``(peq, windows_t,
+    window_valid, k, maxerr)``."""
+    runs = [("sliced", approx_counts, approx_counts_ref),
+            ("myers", approx_counts_myers, approx_counts_ref)]
+    for algo, packs in (("myers", (2, 4)), ("nfa", (1, 2, 4, 8, 16))):
+        runs += [(f"{algo}-p{p}",
+                  functools.partial(approx_counts_packed, pack=p, algo=algo),
+                  functools.partial(approx_counts_packed_ref, pack=p,
+                                    algo=algo))
+                 for p in packs if k <= 32 // p]
+    return runs
+
+
+def searchscheme_case(rng, C: int, W: int, m: int, k: int,
+                      n_invalid: int = 3):
+    """Adversarial inputs for holding the kernels to the search-scheme
+    oracle: C seeded candidates and W windows of m symbols 0-5 (N and pad
+    included), window w built around candidate ``(w + w // 8) % C`` by its
+    kind ``w % 8``:
+
+      0, 1  an exact occurrence at the first / at the last position;
+      2     a substitution in an occurrence at the first position;
+      3     a deletion in an occurrence ending at the last position;
+      4     a valid prefix shorter than k (the candidate's), then pad;
+      5     all N;
+      6     symbols drawn uniformly from 0-5;
+      7     an insertion in an occurrence inside the window.
+
+    Outside what its kind sets, a window holds bases with 2% N.  The last
+    ``n_invalid`` windows are invalid.  Needs m >= k + 2.  Returns numpy (codes int64 [C] holding the
+    uint64 bits, windows_t uint8 [m, W], valid bool [W])."""
+    pats = rng.integers(0, 4, (C, k)).astype(np.uint8)
+    codes = np.zeros(C, np.uint64)
+    for i in range(k):
+        codes = (codes << np.uint64(2)) | pats[:, i].astype(np.uint64)
+    wins = rng.integers(0, 4, (W, m)).astype(np.uint8)
+    wins[rng.random((W, m)) < 0.02] = BASE_N
+    for w in range(W):
+        pat = pats[(w + w // 8) % C].copy()
+        kind = w % 8
+        if kind in (0, 2):
+            if kind == 2:
+                i = rng.integers(0, k)
+                pat[i] = (pat[i] + rng.integers(1, 4)) % 4
+            wins[w, :k] = pat
+        elif kind == 1:
+            wins[w, m - k:] = pat
+        elif kind == 3:
+            wins[w, m - k + 1:] = np.delete(pat, rng.integers(0, k))
+        elif kind == 4:
+            n = rng.integers(0, k)
+            wins[w, :n] = pat[:n]
+            wins[w, n:] = BASE_PAD
+        elif kind == 5:
+            wins[w] = BASE_N
+        elif kind == 6:
+            wins[w] = rng.integers(0, 6, m)
+        else:
+            ins = np.insert(pat, rng.integers(1, k), rng.integers(0, 4))
+            p = rng.integers(1, m - k)
+            wins[w, p:p + k + 1] = ins
+    valid = np.ones(W, bool)
+    valid[W - n_invalid:] = False
+    return codes.view(np.int64), np.ascontiguousarray(wins.T), valid
+
+
 def _kernel_rows(rng, device) -> list[tuple[str, bool]]:
     C, W, m = 64, 512, 40
     rows = []
@@ -96,16 +173,9 @@ def _kernel_rows(rng, device) -> list[tuple[str, bool]]:
             valid[-17:] = False
             args = (peq, wins, valid, k, maxerr)
             want = approx_counts_ref(*args)
-            runs = [("sliced", lambda: approx_counts(*args)),
-                    ("myers", lambda: approx_counts_myers(*args))]
-            runs += [(f"myers-p{p}", lambda p=p: approx_counts_packed(
-                *args, pack=p, algo="myers")) for p in (2, 4) if k <= 32 // p]
-            runs += [(f"nfa-p{p}", lambda p=p: approx_counts_packed(
-                *args, pack=p, algo="nfa"))
-                for p in (1, 2, 4, 8, 16) if k <= 32 // p]
-            for name, fn in runs:
+            for name, fn, _ in kernel_runs(k):
                 rows.append((f"k={k:2d} maxerr={maxerr} {name:9s}",
-                             torch.equal(fn(), want)))
+                             torch.equal(fn(*args), want)))
     return rows
 
 

@@ -1,0 +1,1 @@
+from approx_counter_tpu_torch.sample.sampler import WindowBatch, sample_windows  # noqa: F401

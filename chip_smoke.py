@@ -16,6 +16,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   3. The three alternate kernels (unpacked Myers, packed Myers, packed
      NFA) at the default-run shape, k=16 (and pack 4 at k=8): each equal to
      its plain version and to the plain Myers scan, with both times.
+ 3b. The search-scheme oracle: every approximate-count kernel (the sliced
+     NFA, unpacked Myers, packed Myers at pack 2 and 4 and the packed NFA
+     at pack 1-16, wherever k <= 32 / pack) and every plain version equal
+     to ``search_scheme_error_count``, integer equality, at k in {2, 3, 8,
+     16, 32} x maxerr 0-3 on 8 candidates x 32 windows of 40 and at the
+     default run's widths (k=16, m=101, maxerr 2, C=40, W=260), on
+     windows with occurrences at the edges, one edit away, valid prefixes
+     shorter than k, all N, symbols 0-5 and invalid windows; each kernel
+     launched.  Then ``approx_count_rank`` (a fifth of the slots padding)
+     on the card equal to its CPU result.
   4. The default CLI run (sn=40000, sl=100, k=16, top-500, --max-error 2,
      both ends) on a seeded synthetic FASTA of 50,000 reads with planted
      adapters, through ``approx_counter_tpu_torch.__main__.main``: rc 0, the
@@ -190,7 +200,7 @@ def phase_build() -> dict:
     )
 
     jobs = {("nfa_sliced", k, e): (nfa_sliced_build, (k, e))
-            for k in SMALL_KS + (17,) for e in range(4)}
+            for k in SMALL_KS + SS_KS + (17,) for e in range(4)}
     jobs.update({(name,): (kernel_build, (name,)) for name in KERNELS
                  if name != "nfa_sliced"})
     jobs[("fastx_parser",)] = (host_build, ("fastx_parser",))
@@ -492,6 +502,100 @@ def phase_alternates(builds: dict, clock_hz: float) -> dict:
                                         plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=bound_by))
     return entries
+
+
+# the search-scheme phase's cases: k x maxerr 0-3 at the small size, then
+# one at the default run's widths, past a 32-candidate word and a
+# 256-window block
+SS_KS = (2, 3, 8, 16, 32)
+SS_SMALL = dict(C=8, W=32, m=40)
+SS_DEFAULT = dict(C=40, W=260, m=101, k=16, maxerr=2)
+# gpu_check.kernel_runs names, pack stripped -> kernel
+SS_KERNEL = {"sliced": "nfa_sliced", "myers": "bpm_myers",
+             "myers-p": "bpm_packed", "nfa-p": "nfa_packed"}
+
+
+def phase_searchscheme() -> None:
+    """Phase 3b: every approximate-count kernel and every plain version
+    against ``search_scheme_error_count``, integer equality, on the
+    adversarial windows of ``gpu_check.searchscheme_case``; then
+    ``approx_count_rank`` on the card against its CPU result."""
+    import torch
+
+    from approx_counter_tpu_torch.count.approx import approx_count_rank
+    from approx_counter_tpu_torch.gpu_check import kernel_runs, searchscheme_case
+    from approx_counter_tpu_torch.kernels.bpm import build_peq
+    from approx_counter_tpu_torch.searchscheme import search_scheme_error_count
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    cases = [(k, e, SS_SMALL) for k in SS_KS for e in range(4)]
+    cases.append((SS_DEFAULT["k"], SS_DEFAULT["maxerr"], SS_DEFAULT))
+    held: dict = {}
+    oracle_s = 0.0
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    for k, e, size in cases:
+        C, W, m = size["C"], size["W"], size["m"]
+        codes, wins_t, valid = searchscheme_case(rng, C, W, m, k)
+        t0 = time.perf_counter()
+        got = search_scheme_error_count(
+            [wins_t[:, w] for w in np.flatnonzero(valid)], codes, k, e)
+        oracle_s += time.perf_counter() - t0
+        want = torch.tensor([got[int(c)] for c in codes], dtype=torch.int32,
+                            device=dev)
+        args = (build_peq(torch.from_numpy(codes).to(dev), k),
+                torch.from_numpy(wins_t).to(dev),
+                torch.from_numpy(valid).to(dev), k, e)
+        for name, wrapper, plain in kernel_runs(k):
+            what = f"{name} at k={k} maxerr={e} C={C} W={W} m={m}"
+            exact_diff(wrapper(*args), want,
+                       f"{what} != search_scheme_error_count")
+            exact_diff(plain(*args), want,
+                       f"{what}: plain version != search_scheme_error_count")
+            held.setdefault(SS_KERNEL[name.rstrip("0123456789")], []).append(
+                name)
+    launches = launch_counts()
+    idle = [name for name in held if launches[name] < 1]
+    if idle or len(held) != 4:
+        raise AssertionError(f"search-scheme phase: kernels {sorted(held)}, "
+                             f"no launch of {idle}")
+    wall = time.perf_counter() - t_phase
+    log(f"[searchscheme] {len(cases)} cases: k in {SS_KS} x maxerr 0-3 at "
+        f"C=8 W=32 m=40, k=16 maxerr 2 at C=40 W=260 m=101")
+    for kernel, names in held.items():
+        configs = ", ".join(sorted(set(names), key=names.index))
+        log(f"[searchscheme] {kernel} ({configs}): {len(names)} cases == "
+            f"search_scheme_error_count exactly, its plain version too; "
+            f"{launches[kernel]} launches; phase {wall:.2f} s host wall, "
+            f"{oracle_s:.2f} s of it the oracle")
+
+    # approx_count_rank at the default case (the loop's last), a fifth of
+    # the slots padding
+    k, e = SS_DEFAULT["k"], SS_DEFAULT["maxerr"]
+    windows = np.ascontiguousarray(wins_t.T)
+    sel_valid = rng.random(len(codes)) < 0.8
+    n_valid = int(valid.sum())
+    ranked = {}
+    for where in ("cpu", "cuda"):
+        ranked[where] = [x.cpu() for x in approx_count_rank(
+            torch.from_numpy(windows).to(where), n_valid,
+            torch.from_numpy(codes).to(where),
+            torch.from_numpy(sel_valid).to(where), k, e)]
+    for name, a, b in zip(("codes", "counts", "valid"), ranked["cpu"],
+                          ranked["cuda"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"approx_count_rank on the card: {name} "
+                                 f"differ from the CPU's")
+    r_codes, r_counts, r_valid = ranked["cuda"]
+    n = int(sel_valid.sum())
+    if (not bool(r_valid[:n].all())
+            or [got[int(c)] for c in r_codes[:n]] != r_counts[:n].tolist()):
+        raise AssertionError("approx_count_rank: valid rows' counts differ "
+                             "from search_scheme_error_count")
+    log(f"[searchscheme] approx_count_rank k=16 maxerr 2 C=40 ({n} valid) "
+        f"W=260 m=101: card == CPU (codes, counts, valid), valid counts == "
+        f"search_scheme_error_count")
 
 
 def mutate(rng, s: str) -> str:
@@ -1849,6 +1953,7 @@ def main(argv: list[str] | None = None) -> int:
     builds = phase_build()
     entries = {"nfa_sliced": phase_kernel(builds, clock_hz)}
     entries.update(phase_alternates(builds, clock_hz))
+    phase_searchscheme()
     phase_limit(builds, clock_hz)
     phase_alt_limit(builds, clock_hz)
     with tempfile.TemporaryDirectory() as tmp:

@@ -2,7 +2,9 @@
 
 A subprocess blocks ``jax`` and the JAX package (``sys.modules[name] =
 None`` makes their import fail), imports every module of
-``approx_counter_tpu_torch`` (the three of ``dist/`` among them) and runs a
+``approx_counter_tpu_torch`` (the three of ``dist/`` and ``searchscheme``
+among them), imports the names each sub-package's ``__init__`` re-exports,
+holds a plain count to ``search_scheme_error_count``, and runs a
 tiny ``run_pipeline`` (once more at ``-mr 2`` through the device window
 pool) and ``run_pipeline_multihost`` on the CPU.
 It guards against an import chain such as the JAX package's
@@ -33,6 +35,33 @@ SCRIPT = textwrap.dedent(r"""
     dist = {"approx_counter_tpu_torch.dist." + m
             for m in ("sampling", "mesh", "multihost")}
     assert dist <= set(names), sorted(dist - set(names))
+    subs = {"approx_counter_tpu_torch." + m for m in (
+        "core", "count", "io", "kernels", "dist", "sample", "config",
+        "searchscheme")}
+    assert subs <= set(names), sorted(subs - set(names))
+    from approx_counter_tpu_torch.core import (codes_to_seq, complexity_score,
+                                               complexity_score_np, decode_kmer)
+    from approx_counter_tpu_torch.core.codec import is_dna
+    from approx_counter_tpu_torch.core.complexity import have_low_complexity
+    from approx_counter_tpu_torch.core.ordering import (
+        compare_count_keys, compare_count_np, sort_by_compare_count)
+    from approx_counter_tpu_torch.count import exact_count_select
+    from approx_counter_tpu_torch.count.approx import approx_count_rank
+    from approx_counter_tpu_torch.dist import (approx_counts_sharded,
+                                               gather_windows, initialize)
+    from approx_counter_tpu_torch.io import print_counters, read_fastx
+    from approx_counter_tpu_torch.kernels import (approx_counts, approx_counts_ref,
+                                                  build_peq)
+    from approx_counter_tpu_torch.sample import sample_windows
+    from approx_counter_tpu_torch.config import resolve_params
+    from approx_counter_tpu_torch.searchscheme import search_scheme_error_count
+    import numpy as np
+    wins = np.array([[0, 1, 2, 3, 4, 5, 0, 1]], np.uint8)
+    codes = torch.tensor([0b00011011, 0b11111111])
+    counts = approx_counts_ref(build_peq(codes, 4), torch.from_numpy(wins.T.copy()),
+                               torch.ones(1, dtype=torch.bool), 4)
+    assert counts.tolist() == [3, 0], counts
+    assert search_scheme_error_count(list(wins), codes, 4) == {27: 3, 255: 0}
     from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
     from approx_counter_tpu_torch.params import Params
     from approx_counter_tpu_torch.pipeline import run_pipeline
