@@ -1,14 +1,16 @@
 // Pieces shared by the per-thread-state approximate-count kernels
-// (bpm_myers.cu, bpm_packed.cu, nfa_packed.cu).
+// (nfa_packed.cu, and bpm_myers.cu and bpm_packed.cu through
+// myers_sliced.cuh).
 //
-// All three lay work out the same way: a block is kBlock windows (one per
-// thread) by a group of candidate words that every thread of the block
-// shares, so a word's masks are uniform across the block and its state lives
-// in the thread's registers for the whole text loop.  Row j of the [m, W]
-// text is read as windows_t[j * W + w], one coalesced byte per lane.  At the
-// end each thread holds one integer per output slot (candidate); the block
-// sums them with warp reductions and shared-memory atomics and adds each sum
-// to the output with one integer atomicAdd: exact in any block order.
+// All lay work out the same way: a block is kBlock windows (one per thread)
+// by a group of candidate words that every thread of the block shares, so a
+// word's masks are uniform across the block and its state lives in the
+// thread's registers for the whole text loop.  Row j of the [m, W] text is
+// read as windows_t[j * W + w], one coalesced byte per lane.  At the end of
+// nfa_packed.cu each thread holds one integer per output slot (candidate);
+// block_add sums them with warp reductions and shared-memory atomics and
+// adds each sum to the output with one integer atomicAdd: exact in any
+// block order.
 
 #pragma once
 

@@ -4,9 +4,10 @@ Each kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The FASTA/FASTQ parser ``csrc/fastx_parser.cpp`` is host C++,
 compiled the same way by ``g++`` (``host_build``).  The sliced level NFA
-is built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``; the other
-kernels take their sizes (k, maxerr and the pack width, or the stage
-network's rows and stages) as arguments and are built once each.
+is built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``, the two
+bit-sliced Myers kernels once per k with ``-DKMER``; the packed level NFA
+and the stage network take their sizes (k, maxerr and the pack width, or
+the rows and stages) as arguments and are built once each.
 Libraries go to ``build/torch_kernels/`` beside the package, named by a hash
 of the source, the headers of ``csrc/``, the flags, the compiler's
 ``--version``, the machine and its C library: a changed source rebuilds, an
@@ -178,3 +179,12 @@ def nfa_sliced_build(k: int, maxerr: int) -> KernelBuild:
     if not (2 <= k <= 32 and 0 <= maxerr <= 3):
         raise ValueError(f"no nfa_sliced kernel for k={k}, maxerr={maxerr}")
     return kernel_build("nfa_sliced", (f"-DKMER={k}", f"-DMAXERR={maxerr}"))
+
+
+def myers_build(name: str, k: int) -> KernelBuild:
+    """The bit-sliced Myers library ``name`` (``bpm_myers``: 2 <= k <= 32,
+    ``bpm_packed``: 2 <= k <= 16) for k, built on first use."""
+    if name not in ("bpm_myers", "bpm_packed") or not (
+            2 <= k <= (32 if name == "bpm_myers" else 16)):
+        raise ValueError(f"no {name} kernel for k={k}")
+    return kernel_build(name, (f"-DKMER={k}",))

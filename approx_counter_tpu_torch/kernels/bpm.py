@@ -16,8 +16,10 @@ Four CUDA kernels compute that function, each behind its own wrapper:
     CLI's kernel at every k and maxerr, as in the JAX package's dispatch.
   * ``approx_counts_myers`` -> ``csrc/bpm_myers.cu``, unpacked Myers
     (replaces ``_bpm_kernel``).
-  * ``approx_counts_packed(algo="myers")`` -> ``csrc/bpm_packed.cu``, SWAR
-    Myers with 2 or 4 candidates per word (replaces ``_bpm_kernel_packed``).
+  * ``approx_counts_packed(algo="myers")`` -> ``csrc/bpm_packed.cu``, Myers
+    from SWAR words of 2 or 4 candidates (replaces ``_bpm_kernel_packed``).
+    Both Myers kernels take their candidates apart into bit planes, 32 a
+    word, and run one candidate-bit-sliced core (``csrc/myers_sliced.cuh``).
   * ``approx_counts_packed(algo="nfa")`` -> ``csrc/nfa_packed.cu``, the
     SWAR level NFA with 1-16 candidates per word (replaces
     ``_nfa_kernel_packed``).
@@ -30,6 +32,9 @@ against the plain versions on the card.  The plain versions:
     The plain version of the sliced and the unpacked Myers kernels.
   * ``approx_counts_packed_ref`` -- the SWAR Myers and SWAR level NFA step
     for step, the plain version of the two packed kernels.
+  * ``approx_counts_myers_sliced_ref`` -- the bit-sliced Myers core step for
+    step, which the tests and ``chip_smoke.py`` hold both Myers kernels
+    against beside the two above.
 
 Each wrapper dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors, and nothing else.
@@ -63,8 +68,9 @@ def build_peq(codes: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def build_sliced_planes(peq: torch.Tensor, k: int):
-    """Candidate bit-planes for the sliced NFA: [C, 4] peq -> (P0, P1),
-    each int64 [C // 32, k] holding uint32 values.
+    """Candidate bit-planes for the sliced NFA and the plain bit-sliced
+    Myers core: [C, 4] peq -> (P0, P1), each int64 [C // 32, k] holding
+    uint32 values.
 
     Bit c of ``P0[w, i]`` is bit 0 of candidate (32w + c)'s base at pattern
     position i (base in {C, T}); ``P1`` is bit 1 (base in {G, T}).  C must
@@ -261,6 +267,67 @@ def approx_counts_packed_ref(peq: torch.Tensor, windows_t: torch.Tensor,
     return counts.reshape(n_words * pack)[:C].to(torch.int32)
 
 
+def approx_counts_myers_sliced_ref(peq: torch.Tensor, windows_t: torch.Tensor,
+                                   window_valid: torch.Tensor, k: int,
+                                   maxerr: int = MAXERR) -> torch.Tensor:
+    """Plain torch version of the candidate-bit-sliced Myers core
+    (``csrc/myers_sliced.cuh``, behind ``bpm_myers.cu`` and
+    ``bpm_packed.cu``), step for step: 32 candidates a word
+    (``build_sliced_planes``, C padded with zero rows), k planes of VP and
+    VN per word and window, int64 holding uint32.  Per text symbol, planes
+    in order, Mh of plane i-1 is both the carry into plane i's add and the
+    shifted Mh, Ph of plane i-1 the shifted Ph; the score is a bit-sliced
+    up/down counter of ``k.bit_length()`` planes, and h_d gathers
+    [score <= d] for d = 0-3.  Same arguments and result as
+    ``approx_counts_ref``."""
+    C = peq.shape[0]
+    m, W = windows_t.shape
+    dev = peq.device
+    c_pad = -(-C // 32) * 32
+    if c_pad != C:  # zero rows decode as poly-A: garbage counts, sliced off
+        peq = torch.cat([peq, peq.new_zeros((c_pad - C, 4))])
+    P0, P1 = build_sliced_planes(peq, k)          # [n_words, k] each
+    n_words = c_pad // 32
+
+    def full(value):
+        return torch.full((n_words, W), value, dtype=torch.int64, device=dev)
+
+    VP = [full(_M32) for _ in range(k)]
+    VN = [full(0) for _ in range(k)]
+    s = [full(_M32 if (k >> j) & 1 else 0) for j in range(k.bit_length())]
+    h = [full(_M32 if d >= k else 0) for d in range(4)]
+    for j in range(m):
+        c = windows_t[j].to(torch.int64)[None, :]
+        x0 = ((c & 1) - 1) & _M32          # all ones iff text bit 0 == 0
+        x1 = (((c >> 1) & 1) - 1) & _M32   # all ones iff text bit 1 == 0
+        vm = ((c - 4) >> 63) & _M32        # N and pad match nothing
+        ph = mh = 0                        # Ph and Mh of plane i-1
+        for i in range(k):
+            eq = (P0[:, i:i + 1] ^ x0) & (P1[:, i:i + 1] ^ x1) & vm
+            xh = eq | mh
+            xv = eq | VN[i]
+            ph_i = VN[i] | ((xh | VP[i]) ^ _M32)
+            mh_i = VP[i] & xh
+            VP[i] = mh | ((xv | ph) ^ _M32)
+            VN[i] = ph & xv
+            ph, mh = ph_i, mh_i
+        toggle = ph | mh                   # +1 at ph, -1 at mh
+        for b, bit in enumerate(s):
+            s[b] = bit ^ toggle
+            toggle = toggle & ((bit ^ ph) ^ _M32)
+        low = _M32                         # score <= 3
+        for bit in s[2:]:
+            low = low & (bit ^ _M32)
+        h[0] = h[0] | (low & ((s[1] | s[0]) ^ _M32))
+        h[1] = h[1] | (low & (s[1] ^ _M32))
+        h[2] = h[2] | (low & ((s[1] & s[0]) ^ _M32))
+        h[3] = h[3] | low
+    lane = torch.arange(32, dtype=torch.int64, device=dev)[None, :, None]
+    counts = sum((((hd[:, None, :] >> lane) & 1) * window_valid).sum(dim=2)
+                 for hd in h[:maxerr + 1])
+    return counts.reshape(c_pad)[:C].to(torch.int32)
+
+
 def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 holding uint32 values -> int32 with the same 32 bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
@@ -307,10 +374,12 @@ def _launch(fn, tensors, ints) -> None:
 #: Most candidate groups one launch takes: every kernel puts its groups on
 #: ``grid.y``, which CUDA caps at 65,535 blocks.
 MAX_GRID_Y = 65535
-#: Rows of one ``grid.y`` block: ``kCands`` in ``csrc/bpm_myers.cu``,
-#: ``kWords`` in ``csrc/bpm_packed.cu`` and ``csrc/nfa_packed.cu``.
-MYERS_CANDS = 8
-PACKED_WORDS = 8
+#: Candidates of one ``grid.y`` block of both Myers kernels (``kCands`` in
+#: ``csrc/myers_sliced.cuh``): ``bpm_myers.cu`` takes that many candidates,
+#: ``bpm_packed.cu`` that many over ``pack`` words.
+MYERS_CANDS = 32
+#: SWAR words of one ``grid.y`` block of ``csrc/nfa_packed.cu`` (``kWords``).
+NFA_PACKED_WORDS = 8
 
 
 def word_launches(n_words: int, group: int = 1) -> list[tuple[int, int]]:
@@ -318,8 +387,9 @@ def word_launches(n_words: int, group: int = 1) -> list[tuple[int, int]]:
     kernel that takes ``group`` rows per ``grid.y`` block: one launch up to
     ``MAX_GRID_Y`` groups, then consecutive slices of at most that many.
     The rows are the sliced NFA's 32-candidate words (group 1), unpacked
-    Myers' candidates (group ``MYERS_CANDS``) and the packed kernels' SWAR
-    words (group ``PACKED_WORDS``)."""
+    Myers' candidates (group ``MYERS_CANDS``), packed Myers' SWAR words
+    (group ``MYERS_CANDS // pack``) and the packed NFA's (group
+    ``NFA_PACKED_WORDS``)."""
     step = MAX_GRID_Y * group
     return [(w, min(step, n_words - w)) for w in range(0, n_words, step)]
 
@@ -364,13 +434,13 @@ def approx_counts_myers(peq: torch.Tensor, windows_t: torch.Tensor,
                         maxerr: int = MAXERR) -> torch.Tensor:
     """int32 [C] approximate counts by unpacked Myers: ``csrc/bpm_myers.cu``
     for CUDA tensors, ``approx_counts_ref`` for CPU tensors.  Any C: past
-    65,535 groups of 8 (524,280 candidates) the candidates are split over
+    65,535 groups of 32 (2,097,120 candidates) the candidates are split over
     several launches (``word_launches``).  ``approx_counts_myers.launches``
     counts the kernel launches.
 
     The counterpart of the JAX package's ``approx_counts_pallas``.  Its
     knobs do not carry over: ``ct``/``wt`` size VMEM tiles of the TPU's
-    sequential grid (a CUDA block here is 256 windows by 8 candidates, and
+    sequential grid (a CUDA block here is 256 windows by 32 candidates, and
     ragged edges are masked in the kernel), ``eqsel`` chose between two TPU
     vector-unit idioms (the kernel always takes the base-bit select), and
     ``interpret`` ran the Pallas body on the CPU (the plain version is the
@@ -384,11 +454,11 @@ def approx_counts_myers(peq: torch.Tensor, windows_t: torch.Tensor,
     if _on_cpu(peq, "approx_counts_myers"):
         return approx_counts_ref(peq, windows_t, window_valid, k, maxerr)
 
-    from approx_counter_tpu_torch.kernels._build import kernel_build
+    from approx_counter_tpu_torch.kernels._build import myers_build
 
     peq32 = _as_int32_bits(peq).contiguous()
     out = torch.zeros(C, dtype=torch.int32, device=peq.device)
-    fn = kernel_build("bpm_myers").lib.bpm_myers
+    fn = myers_build("bpm_myers", k).lib.bpm_myers
     for c0, n in word_launches(C, MYERS_CANDS):
         _launch(fn, (peq32[c0:c0 + n], windows_t, window_valid,
                      out[c0:c0 + n]), (n, m, W, k, maxerr))
@@ -407,8 +477,9 @@ def approx_counts_packed(peq: torch.Tensor, windows_t: torch.Tensor,
     per 32-bit word: ``csrc/bpm_packed.cu`` (``algo="myers"``, pack 2 or 4)
     or ``csrc/nfa_packed.cu`` (``algo="nfa"``, pack 1, 2, 4, 8 or 16) for
     CUDA tensors, ``approx_counts_packed_ref`` for CPU tensors.  k must be
-    at most 32 // pack.  Any C: past 65,535 groups of 8 words the words are
-    split over several launches (``word_launches``).
+    at most 32 // pack.  Any C: past 65,535 groups (of 32 // pack words for
+    Myers, 2,097,120 candidates; of ``NFA_PACKED_WORDS`` words for the NFA)
+    the words are split over several launches (``word_launches``).
     ``approx_counts_packed.launches[algo]`` counts each kernel's launches.
 
     The counterpart of the JAX package's ``approx_counts_pallas_packed``;
@@ -426,13 +497,20 @@ def approx_counts_packed(peq: torch.Tensor, windows_t: torch.Tensor,
         return approx_counts_packed_ref(peq, windows_t, window_valid, k,
                                         maxerr, pack, algo)
 
-    from approx_counter_tpu_torch.kernels._build import kernel_build
+    from approx_counter_tpu_torch.kernels._build import (
+        kernel_build,
+        myers_build,
+    )
 
     words = _as_int32_bits(interleave_peq(peq, pack)).contiguous()
     out = torch.zeros(words.shape[0] * pack, dtype=torch.int32, device=peq.device)
-    name = "bpm_packed" if algo == "myers" else "nfa_packed"
-    fn = getattr(kernel_build(name).lib, name)
-    for w0, n in word_launches(words.shape[0], PACKED_WORDS):
+    if algo == "myers":
+        fn = myers_build("bpm_packed", k).lib.bpm_packed
+        group = MYERS_CANDS // pack
+    else:
+        fn = kernel_build("nfa_packed").lib.nfa_packed
+        group = NFA_PACKED_WORDS
+    for w0, n in word_launches(words.shape[0], group):
         _launch(fn, (words[w0:w0 + n], windows_t, window_valid,
                      out[pack * w0:pack * (w0 + n)]), (n, m, W, k, maxerr, pack))
         approx_counts_packed.launches[algo] += 1

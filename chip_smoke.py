@@ -15,7 +15,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      the main shape, from CUDA events, warm-up excluded.
   3. The three alternate kernels (unpacked Myers, packed Myers, packed
      NFA) at the default-run shape, k=16 (and pack 4 at k=8): each equal to
-     its plain version and to the plain Myers scan, with both times.
+     its plain version and to the plain Myers scan (the two Myers kernels
+     also to ``approx_counts_myers_sliced_ref``), with both times; each
+     time, the sliced NFA's too, over its own bound and over the function
+     bound at its k (the least own bound of the four count kernels there).
  3b. The search-scheme oracle: every approximate-count kernel (the sliced
      NFA, unpacked Myers, packed Myers at pack 2 and 4 and the packed NFA
      at pack 1-16, wherever k <= 32 / pack) and every plain version equal
@@ -24,7 +27,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      default run's widths (k=16, m=101, maxerr 2, C=40, W=260), on
      windows with occurrences at the edges, one edit away, valid prefixes
      shorter than k, all N, symbols 0-5 and invalid windows; each kernel
-     launched.  Then ``approx_count_rank`` (a fifth of the slots padding)
+     launched; ``approx_counts_myers_sliced_ref`` equal to it too.  Then ``approx_count_rank`` (a fifth of the slots padding)
      on the card equal to its CPU result.
   4. The default CLI run (sn=40000, sl=100, k=16, top-500, --max-error 2,
      both ends) on a seeded synthetic FASTA of 50,000 reads with planted
@@ -53,8 +56,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      on ~4,000 rows (1,024 at random, the 1,000 on each side of candidate
      2,097,120 and the last 1,000), and its first 2,097,120 counts equal to
      one launch over those candidates alone; its time and bound.  The same
-     for unpacked Myers and the packed NFA at pack 1 at C=530,000 (past
-     65,535 groups of 8, 524,280 candidates), W=512: two launches each.
+     at C=2,100,000, W=512 for unpacked Myers and packed Myers at pack 2
+     (past 65,535 groups of 32 candidates: two launches each, also equal to
+     ``approx_counts_myers_sliced_ref``) and the packed NFA at pack 1 (past
+     65,535 groups of 8 words, 524,280 candidates: five launches).
   9. Solid mode at full size: the default run at -sk 20 and at -sk 1.  The
      exact export holds n_keep lines, every count >= N, in CompareCount
      order; the approximate one min(n_keep, 500), adapters on top; the
@@ -96,7 +101,10 @@ Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and the time of the busiest limit of its text loop's SASS
 (from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
 ALU pipe's instructions over 64 lanes per SM, the FMA-heavy pipe's over
-64, every instruction over the 128 that issue per SM and clock.  The
+64, every instruction over the 128 that issue per SM and clock; a thread
+carries 32 candidates in the sliced NFA and both Myers kernels, 8 words of
+``pack`` candidates in the packed NFA.  The four compute one function, so
+the least of their bounds at a k is the function's bound there.  The
 stage network's counts one min or max per element and stage on the ALU
 pipe.  A kernel that beats its bound fails its phase: the model is wrong
 or work was elided.
@@ -122,6 +130,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import os
@@ -138,14 +147,16 @@ sys.path.insert(0, REPO)
 
 CSRC = "approx_counter_tpu_torch/csrc"
 TPU_BPM = "approx_counter_tpu/kernels/bpm.py"
-# kernel -> (source, Pallas kernel it replaces, candidates per thread per
-# pack field: kCands / kWords in the sources, 32 for the bit-sliced words;
-# None for the stage network, which counts no candidates)
+# kernel -> (source, Pallas kernel it replaces, (words a thread carries,
+# candidates a word: 32 for the bit-sliced words of the sliced NFA and both
+# Myers kernels whatever the pack, None for the packed NFA's SWAR words of
+# ``pack`` candidates); None for the stage network, which counts no
+# candidates)
 KERNELS = {
-    "nfa_sliced": (f"{CSRC}/nfa_sliced.cu", f"{TPU_BPM}:718", 32),
-    "bpm_myers": (f"{CSRC}/bpm_myers.cu", f"{TPU_BPM}:264", 8),
-    "bpm_packed": (f"{CSRC}/bpm_packed.cu", f"{TPU_BPM}:399", 8),
-    "nfa_packed": (f"{CSRC}/nfa_packed.cu", f"{TPU_BPM}:505", 8),
+    "nfa_sliced": (f"{CSRC}/nfa_sliced.cu", f"{TPU_BPM}:718", (1, 32)),
+    "bpm_myers": (f"{CSRC}/bpm_myers.cu", f"{TPU_BPM}:264", (1, 32)),
+    "bpm_packed": (f"{CSRC}/bpm_packed.cu", f"{TPU_BPM}:399", (1, 32)),
+    "nfa_packed": (f"{CSRC}/nfa_packed.cu", f"{TPU_BPM}:505", (8, None)),
     "sort_stage": (f"{CSRC}/sort_stage.cu", "native/sort_stage_probe5.py:48",
                    None),
 }
@@ -193,25 +204,34 @@ def max_sm_clock_hz() -> float:
 
 def phase_build() -> dict:
     """Builds every library in parallel; returns the builds by key."""
+    from approx_counter_tpu_torch.gpu_check import KS as CHECK_KS
     from approx_counter_tpu_torch.kernels._build import (
         host_build,
         kernel_build,
+        myers_build,
         nfa_sliced_build,
     )
 
+    # every k at which a phase runs the Myers kernels (packed Myers only
+    # up to 16): one library each
+    myers_ks = sorted({*SS_KS, *CHECK_KS, *(k for _, k, _ in ALTERNATES)})
     jobs = {("nfa_sliced", k, e): (nfa_sliced_build, (k, e))
             for k in SMALL_KS + SS_KS + (17,) for e in range(4)}
-    jobs.update({(name,): (kernel_build, (name,)) for name in KERNELS
-                 if name != "nfa_sliced"})
+    jobs.update({("bpm_myers", k): (myers_build, ("bpm_myers", k))
+                 for k in myers_ks})
+    jobs.update({("bpm_packed", k): (myers_build, ("bpm_packed", k))
+                 for k in myers_ks if k <= 16})
+    jobs.update({(name,): (kernel_build, (name,))
+                 for name in ("nfa_packed", "sort_stage")})
     jobs[("fastx_parser",)] = (host_build, ("fastx_parser",))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         futs = {key: ex.submit(fn, *args) for key, (fn, args) in jobs.items()}
         builds = {key: f.result() for key, f in futs.items()}
     wall = time.perf_counter() - t0
-    shown = [("nfa_sliced", 16, 2), ("nfa_sliced", 32, 3), ("bpm_myers",),
-             ("bpm_packed",), ("nfa_packed",), ("sort_stage",),
-             ("fastx_parser",)]
+    shown = [("nfa_sliced", 16, 2), ("nfa_sliced", 32, 3), ("bpm_myers", 16),
+             ("bpm_myers", 32), ("bpm_packed", 16), ("bpm_packed", 8),
+             ("nfa_packed",), ("sort_stage",), ("fastx_parser",)]
     log(f"[build] {len(builds)} libraries in {wall:.2f} s wall (one nvcc "
         f"each, all at once): " + ", ".join(
             f"{'/'.join(map(str, key))} {builds[key].seconds:.2f} s"
@@ -302,7 +322,8 @@ def bound(kernel: str, ops_per_step: dict, C: int, pack: int,
           W: int = MAIN["W"]) -> tuple[float, str]:
     """(bound ms, what bounds it) for C candidates and W windows of m
     symbols (the main shape by default)."""
-    per_thread = KERNELS[kernel][2] * pack
+    words, per_word = KERNELS[kernel][2]
+    per_thread = words * (per_word or pack)
     steps = m * W * -(-C // per_thread)
     # inputs once: int64 peq [C, 4], text [m, W], valid [W]; int32 out [C]
     return roofline({pipe: n * steps for pipe, n in ops_per_step.items()},
@@ -452,12 +473,30 @@ ALTERNATES = [("bpm_myers", 16, 1), ("bpm_packed", 16, 2),
               ("nfa_packed", 16, 1), ("nfa_packed", 8, 4)]
 
 
-def phase_alternates(builds: dict, clock_hz: float) -> dict:
+def sass_targs(kernel: str, k: int, pack: int, e: int) -> tuple:
+    """(build key, template arguments of the kernel's symbol)."""
+    if kernel == "nfa_sliced":
+        return (kernel, k, e), (k, e)
+    if kernel == "bpm_myers":
+        return (kernel, k), (k,)
+    if kernel == "bpm_packed":
+        return (kernel, k), (k, pack)
+    return (kernel,), (pack, e)
+
+
+def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
     """The three alternate kernels at the default-run shape: each equal to
-    its plain version and to the plain Myers scan; both times and the
-    bound.  Returns each kernel's entry for its first configuration."""
+    its plain version and to the plain Myers scan (the Myers kernels also
+    to the plain bit-sliced core); both times and the bound.  Then each
+    time, and the sliced NFA's (``sliced``: phase 2's entry at k=16),
+    against the kernel's own bound and against the function's: the least
+    own bound of the four count kernels at that k.  Returns each kernel's
+    entry for its first configuration, and sets ``sliced``'s too, with the
+    function bound as ``bound_ms`` and the kernel's own as
+    ``own_bound_ms``."""
     from approx_counter_tpu_torch.kernels.bpm import (
         approx_counts_myers,
+        approx_counts_myers_sliced_ref,
         approx_counts_packed,
         approx_counts_packed_ref,
         approx_counts_ref,
@@ -466,14 +505,19 @@ def phase_alternates(builds: dict, clock_hz: float) -> dict:
     rng = np.random.default_rng(21)
     e = MAIN["maxerr"]
     entries = {}
+    rows = [("nfa_sliced k=16", 16, sliced["ms"], sliced["bound_ms"])]
+    own = {}  # k -> {configuration: (own bound ms, bound by)}
+    for k in sorted({k for _, k, _ in ALTERNATES}):
+        key, targs = sass_targs("nfa_sliced", k, 1, e)
+        own[k] = {"nfa_sliced": bound("nfa_sliced", sass_ops_per_step(
+            builds[key].so, "nfa_sliced", targs), MAIN["C"], 1, clock_hz)}
     for kernel, k, pack in ALTERNATES:
         args = (*main_case(rng, k), k, e)
         if kernel == "bpm_myers":
             def fn():
                 return approx_counts_myers(*args)
 
-            plain = approx_counts_ref
-            targs = ()
+            plains = [approx_counts_ref]
         else:
             algo = "myers" if kernel == "bpm_packed" else "nfa"
 
@@ -483,24 +527,43 @@ def phase_alternates(builds: dict, clock_hz: float) -> dict:
             def plain(*a):
                 return approx_counts_packed_ref(*a, pack, algo)
 
-            targs = (pack,) if kernel == "bpm_packed" else (pack, e)
+            plains = [plain, approx_counts_ref]
+        if kernel != "nfa_packed":
+            plains.append(approx_counts_myers_sliced_ref)
         what = f"{kernel} k={k} pack={pack}"
         got = fn()
-        err = max(exact_diff(got, plain(*args), f"{what} != its plain version"),
-                  exact_diff(got, approx_counts_ref(*args),
-                             f"{what} != approx_counts_ref"))
+        err = max(exact_diff(got, p(*args), f"{what} != {p.__name__}")
+                  for p in plains)
         ms = time_ms(fn, 20)
-        plain_ms = time_ms(lambda: plain(*args), 3)
-        ops = sass_ops_per_step(builds[(kernel,)].so, kernel, targs)
+        plain_ms = time_ms(lambda: plains[0](*args), 3)
+        key, targs = sass_targs(kernel, k, pack, e)
+        ops = sass_ops_per_step(builds[key].so, kernel, targs)
         bound_ms, bound_by = bound(kernel, ops, MAIN["C"], pack, clock_hz)
-        log(f"[alternates] {what} maxerr={e} at C=500 W=40000 m=101: == plain "
-            f"and == approx_counts_ref exactly; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; SASS "
-            f"ops per step and thread: {ops_text(ops)})")
+        own[k][f"{kernel} pack {pack}"] = bound_ms, bound_by
+        log(f"[alternates] {what} maxerr={e} at C=500 W=40000 m=101: == "
+            f"{', '.join(p.__name__ for p in plains)} exactly; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; SASS ops per step and thread: {ops_text(ops)})")
         not_under(what, ms, bound_ms)
-        entries.setdefault(kernel, dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms, bound_ms=bound_ms,
-                                        bound_by=bound_by))
+        rows.append((what, k, ms, bound_ms))
+        entries.setdefault(kernel, dict(k=k, max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=bound_ms))
+    least = {k: min(bounds.values()) for k, bounds in own.items()}
+    for k, bounds in own.items():
+        log(f"[alternates] function bound at k={k}: {least[k][0]:.4f} ms, "
+            f"the least own bound of "
+            f"{ {c: round(b, 4) for c, (b, _) in bounds.items()} }")
+    for what, k, ms, bound_ms in rows:
+        fb = least[k][0]
+        log(f"[alternates] {what}: time / own bound {ms / bound_ms:.4f} "
+            f"({bound_ms / ms:.1%} of it), time / function bound "
+            f"{ms / fb:.4f} ({fb / ms:.1%} of it)")
+    # the kernels line reports the function bound: the least time the card
+    # could take for the same work
+    for entry in (sliced, *entries.values()):
+        k = entry.pop("k", 16)
+        entry["own_bound_ms"] = entry["bound_ms"]
+        entry["bound_ms"], entry["bound_by"] = least[k]
     return entries
 
 
@@ -524,7 +587,10 @@ def phase_searchscheme() -> None:
 
     from approx_counter_tpu_torch.count.approx import approx_count_rank
     from approx_counter_tpu_torch.gpu_check import kernel_runs, searchscheme_case
-    from approx_counter_tpu_torch.kernels.bpm import build_peq
+    from approx_counter_tpu_torch.kernels.bpm import (
+        approx_counts_myers_sliced_ref,
+        build_peq,
+    )
     from approx_counter_tpu_torch.searchscheme import search_scheme_error_count
 
     dev = torch.device("cuda")
@@ -555,6 +621,9 @@ def phase_searchscheme() -> None:
                        f"{what}: plain version != search_scheme_error_count")
             held.setdefault(SS_KERNEL[name.rstrip("0123456789")], []).append(
                 name)
+        exact_diff(approx_counts_myers_sliced_ref(*args), want,
+                   f"approx_counts_myers_sliced_ref at k={k} maxerr={e} C={C} "
+                   f"W={W} m={m} != search_scheme_error_count")
     launches = launch_counts()
     idle = [name for name in held if launches[name] < 1]
     if idle or len(held) != 4:
@@ -562,7 +631,9 @@ def phase_searchscheme() -> None:
                              f"no launch of {idle}")
     wall = time.perf_counter() - t_phase
     log(f"[searchscheme] {len(cases)} cases: k in {SS_KS} x maxerr 0-3 at "
-        f"C=8 W=32 m=40, k=16 maxerr 2 at C=40 W=260 m=101")
+        f"C=8 W=32 m=40, k=16 maxerr 2 at C=40 W=260 m=101; "
+        f"approx_counts_myers_sliced_ref == search_scheme_error_count in "
+        f"each")
     for kernel, names in held.items():
         configs = ", ".join(sorted(set(names), key=names.index))
         log(f"[searchscheme] {kernel} ({configs}): {len(names)} cases == "
@@ -896,16 +967,18 @@ def phase_limit(builds: dict, clock_hz: float) -> dict:
                 bound_by=bound_by)
 
 
-# the alternate kernels' old limit: 65,535 groups of 8 rows on grid.y
-ALT_OLD_LIMIT = 65535 * 8
-ALT_LIMIT = dict(C=530_000, W=512, m=101)
+# past the alternate kernels' one-launch limits: 65,535 groups on grid.y,
+# of 32 candidates for both Myers kernels (2,097,120 candidates) and of 8
+# SWAR words for the packed NFA (524,280 at pack 1)
+ALT_LIMIT = dict(C=2_100_000, W=512, m=101)
 
 
 def phase_alt_limit(builds: dict, clock_hz: float) -> None:
-    """Phase 8, continued: unpacked Myers and the packed NFA at pack 1 past
-    524,280 candidates (65,535 groups of 8 on ``grid.y``), each equal to its
-    plain version on ~4,000 rows and, on its first 524,280 candidates, to
-    one launch over those alone."""
+    """Phase 8, continued: unpacked Myers, packed Myers at pack 2 and the
+    packed NFA at pack 1 at C=2,100,000, past each one's one-launch limit:
+    each split over its launch plan, equal to its plain versions on ~4,000
+    rows (the Myers kernels also to the plain bit-sliced core) and, on the
+    candidates of one launch, to one launch over those alone."""
     import torch
 
     from approx_counter_tpu_torch.kernels import bpm
@@ -918,49 +991,63 @@ def phase_alt_limit(builds: dict, clock_hz: float) -> None:
     peq = bpm.build_peq(torch.from_numpy(codes).to(dev), k)
     args = (torch.from_numpy(wins_t).to(dev), torch.from_numpy(valid).to(dev),
             k, e)
-    rows = np.unique(np.concatenate([
-        rng.choice(C, 1024, replace=False),
-        np.arange(ALT_OLD_LIMIT - 1000, ALT_OLD_LIMIT + 1000),
-        np.arange(C - 1000, C)]))
-    rows_t = torch.from_numpy(rows).to(dev)
-    plan = bpm.word_launches(C, bpm.MYERS_CANDS)  # pack 1: a word each
+    P = functools.partial
+    # kernel -> (pack, rows of a grid.y group, wrapper, plain versions,
+    # launch count)
     cases = {
-        "bpm_myers": (lambda p: bpm.approx_counts_myers(p, *args),
-                      lambda p: bpm.approx_counts_ref(p, *args),
-                      lambda: bpm.approx_counts_myers.launches, ()),
-        "nfa_packed": (lambda p: bpm.approx_counts_packed(p, *args, 1, "nfa"),
-                       lambda p: bpm.approx_counts_packed_ref(p, *args, 1,
-                                                              "nfa"),
-                       lambda: bpm.approx_counts_packed.launches["nfa"],
-                       (1, e)),
+        "bpm_myers": (1, bpm.MYERS_CANDS, bpm.approx_counts_myers,
+                      [bpm.approx_counts_ref,
+                       bpm.approx_counts_myers_sliced_ref],
+                      lambda: bpm.approx_counts_myers.launches),
+        "bpm_packed": (2, bpm.MYERS_CANDS // 2,
+                       P(bpm.approx_counts_packed, pack=2, algo="myers"),
+                       [P(bpm.approx_counts_packed_ref, pack=2, algo="myers"),
+                        bpm.approx_counts_ref,
+                        bpm.approx_counts_myers_sliced_ref],
+                       lambda: bpm.approx_counts_packed.launches["myers"]),
+        "nfa_packed": (1, bpm.NFA_PACKED_WORDS,
+                       P(bpm.approx_counts_packed, pack=1, algo="nfa"),
+                       [P(bpm.approx_counts_packed_ref, pack=1, algo="nfa"),
+                        bpm.approx_counts_ref],
+                       lambda: bpm.approx_counts_packed.launches["nfa"]),
     }
-    for name, (fn, plain, count, targs) in cases.items():
+    for name, (pack, group, fn, plains, count) in cases.items():
+        plan = bpm.word_launches(-(-C // pack), group)
+        limit = bpm.MAX_GRID_Y * group * pack  # candidates of one launch
+        rows = np.unique(np.concatenate([
+            rng.choice(C, 1024, replace=False),
+            np.arange(limit - 1000, limit + 1000), np.arange(C - 1000, C)]))
+        rows_t = torch.from_numpy(rows).to(dev)
         before = count()
-        got = fn(peq)
+        got = fn(peq, *args)
         launches = count() - before
         if launches != len(plan) or len(plan) < 2:
             raise AssertionError(f"{name} C={C}: {launches} launches, plan "
                                  f"{plan}")
-        exact_diff(got[rows_t], plain(peq[rows_t]),
-                   f"{name} != plain on {len(rows)} rows at C={C}")
+        for plain in plains:
+            exact_diff(got[rows_t], plain(peq[rows_t], *args),
+                       f"{name} != {getattr(plain, 'func', plain).__name__} "
+                       f"on {len(rows)} rows at C={C}")
         before = count()
-        one = fn(peq[:ALT_OLD_LIMIT])
+        one = fn(peq[:limit], *args)
         if count() - before != 1:
-            raise AssertionError(f"{name} C={ALT_OLD_LIMIT}: not one launch")
-        exact_diff(got[:ALT_OLD_LIMIT], one,
+            raise AssertionError(f"{name} C={limit}: not one launch")
+        exact_diff(got[:limit], one,
                    f"{name}: {len(plan)} launches != one launch over the "
-                   f"first {ALT_OLD_LIMIT} candidates")
-        ms = time_ms(lambda: fn(peq), 3)
-        ops = sass_ops_per_step(builds[(name,)].so, name, targs)
-        bound_ms, bound_by = bound(name, ops, C, 1, clock_hz,
+                   f"first {limit} candidates")
+        ms = time_ms(lambda: fn(peq, *args), 3)
+        key, targs = sass_targs(name, k, pack, e)
+        ops = sass_ops_per_step(builds[key].so, name, targs)
+        bound_ms, bound_by = bound(name, ops, C, pack, clock_hz,
                                    ALT_LIMIT["m"], ALT_LIMIT["W"])
         not_under(f"{name} at C={C}", ms, bound_ms)
-        log(f"[limit] {name}{' pack 1' if targs else ''} C={C} "
-            f"W={ALT_LIMIT['W']} m={ALT_LIMIT['m']} k=16 maxerr=2: "
-            f"{launches} launches {plan}; kernel == plain on {len(rows)} rows "
-            f"(1,024 random, 2,000 around candidate {ALT_OLD_LIMIT}, the last "
-            f"1,000), first {ALT_OLD_LIMIT} == one launch; {ms:.4f} ms (mean "
-            f"of 3 after 2 warm-up), bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[limit] {name} pack {pack} C={C} W={ALT_LIMIT['W']} "
+            f"m={ALT_LIMIT['m']} k=16 maxerr=2: {launches} launches "
+            f"{[n for _, n in plan]} (rows of {group}-row groups); kernel == "
+            f"{len(plains)} plain versions on {len(rows)} rows (1,024 "
+            f"random, 2,000 around candidate {limit}, the last 1,000), first "
+            f"{limit} == one launch; {ms:.4f} ms (mean of 3 after 2 "
+            f"warm-up), bound {bound_ms:.4f} ms ({bound_by})")
 
 
 def log_lines(stdout: str) -> list[tuple[str, str, float]]:
@@ -1952,7 +2039,7 @@ def main(argv: list[str] | None = None) -> int:
     log(f"[env] max SM clock {clock_hz / 1e6:g} MHz")
     builds = phase_build()
     entries = {"nfa_sliced": phase_kernel(builds, clock_hz)}
-    entries.update(phase_alternates(builds, clock_hz))
+    entries.update(phase_alternates(builds, clock_hz, entries["nfa_sliced"]))
     phase_searchscheme()
     phase_limit(builds, clock_hz)
     phase_alt_limit(builds, clock_hz)

@@ -378,45 +378,61 @@ def test_word_launches_cover_the_words(n_words, plan):
 # --- the alternate kernels' launch plan -------------------------------------
 
 
-@pytest.mark.parametrize("rows,plan", [
-    (1, [(0, 1)]),
-    (500, [(0, 500)]),
-    (524280, [(0, 524280)]),  # Myers C = 524,280: one launch, as before
-    (524281, [(0, 524280), (524280, 1)]),
-    (530000, [(0, 524280), (524280, 5720)]),  # C = 530,000
-    (2 * 524280 + 9, [(0, 524280), (524280, 524280), (1048560, 9)]),
+@pytest.mark.parametrize("rows,group,plan", [
+    (1, 32, [(0, 1)]),
+    (500, 32, [(0, 500)]),
+    (2097120, 32, [(0, 2097120)]),  # Myers C = 2,097,120: one launch
+    (2097121, 32, [(0, 2097120), (2097120, 1)]),
+    (2100000, 32, [(0, 2097120), (2097120, 2880)]),  # C = 2,100,000
+    (2 * 2097120 + 9, 32, [(0, 2097120), (2097120, 2097120), (4194240, 9)]),
+    (1050000, 16, [(0, 1048560), (1048560, 1440)]),  # pack 2, C = 2,100,000
+    (530000, 8, [(0, 524280), (524280, 5720)]),  # packed NFA, 530,000 words
 ])
-def test_group_launches_cover_the_rows(rows, plan):
-    """``word_launches`` with 8 rows a ``grid.y`` block, as the unpacked
-    Myers kernel takes its candidates and the packed kernels their words:
-    every launch holds at most 65,535 whole groups, and the launches tile
-    the rows in order."""
+def test_group_launches_cover_the_rows(rows, group, plan):
+    """``word_launches`` with ``group`` rows a ``grid.y`` block, as the
+    Myers kernels take their 32 candidates (unpacked: 32 rows, pack 2: 16
+    words) and the packed NFA its 8 words: every launch holds at most
+    65,535 whole groups, and the launches tile the rows in order."""
     from approx_counter_tpu_torch.kernels.bpm import (
         MAX_GRID_Y,
         MYERS_CANDS,
-        PACKED_WORDS,
+        NFA_PACKED_WORDS,
         word_launches,
     )
 
-    assert MYERS_CANDS == PACKED_WORDS == 8
-    got = word_launches(rows, MYERS_CANDS)
+    assert (MYERS_CANDS, NFA_PACKED_WORDS) == (32, 8)
+    assert group in (MYERS_CANDS, MYERS_CANDS // 2, NFA_PACKED_WORDS)
+    got = word_launches(rows, group)
     assert got == plan
-    assert all(-(-n // MYERS_CANDS) <= MAX_GRID_Y for _, n in got)
-    assert all(a % MYERS_CANDS == 0 for a, _ in got)
+    assert all(-(-n // group) <= MAX_GRID_Y for _, n in got)
+    assert all(a % group == 0 for a, _ in got)
     assert sum(n for _, n in got) == rows
     assert all(a + n == b for (a, n), (b, _) in zip(got, got[1:]))
 
 
 @pytest.mark.parametrize("name,const", [("bpm_myers.cu", "kCands"),
-                                        ("bpm_packed.cu", "kWords"),
+                                        ("bpm_packed.cu", "kCands"),
                                         ("nfa_packed.cu", "kWords")])
 def test_group_size_matches_the_kernel_source(name, const):
-    """The wrappers' group size is the rows a block of the kernel takes."""
-    from approx_counter_tpu_torch.kernels.bpm import MYERS_CANDS, PACKED_WORDS
+    """The wrappers' group size is the rows a block of the kernel takes:
+    the 32 candidates of the bit-sliced core both Myers kernels include
+    (``kCands`` in ``myers_sliced.cuh``; packed Myers takes them as
+    kCands / PACK words), the packed NFA's ``kWords`` words."""
+    from approx_counter_tpu_torch.kernels.bpm import (
+        MYERS_CANDS,
+        NFA_PACKED_WORDS,
+    )
 
-    src = (Path(__file__).resolve().parents[1] / "approx_counter_tpu_torch"
-           / "csrc" / name).read_text()
-    n = int(re.search(rf"constexpr int {const} = (\d+);", src).group(1))
-    assert n == (MYERS_CANDS if const == "kCands" else PACKED_WORDS)
+    csrc = (Path(__file__).resolve().parents[1] / "approx_counter_tpu_torch"
+            / "csrc")
+    src = (csrc / name).read_text()
+    defs = src
+    if const == "kCands":
+        assert '#include "myers_sliced.cuh"' in src
+        defs = (csrc / "myers_sliced.cuh").read_text()
+    n = int(re.search(rf"constexpr int {const} = (\d+);", defs).group(1))
+    assert n == (MYERS_CANDS if const == "kCands" else NFA_PACKED_WORDS)
+    if name == "bpm_packed.cu":
+        assert "kWords = myers::kCands / PACK;" in src
     assert "groups > 65535" in src  # the one-launch limit the plan serves
 
