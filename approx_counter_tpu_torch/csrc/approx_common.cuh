@@ -1,16 +1,13 @@
-// Pieces shared by the per-thread-state approximate-count kernels
-// (nfa_packed.cu, and bpm_myers.cu and bpm_packed.cu through
-// myers_sliced.cuh).
+// Pieces shared by the candidate-bit-sliced approximate-count kernels (the
+// level-NFA core nfa_sliced.cuh and the Myers core myers_sliced.cuh, and
+// the two packed kernels that take SWAR words apart for them).
 //
 // All lay work out the same way: a block is kBlock windows (one per thread)
-// by a group of candidate words that every thread of the block shares, so a
-// word's masks are uniform across the block and its state lives in the
-// thread's registers for the whole text loop.  Row j of the [m, W] text is
-// read as windows_t[j * W + w], one coalesced byte per lane.  At the end of
-// nfa_packed.cu each thread holds one integer per output slot (candidate);
-// block_add sums them with warp reductions and shared-memory atomics and
-// adds each sum to the output with one integer atomicAdd: exact in any
-// block order.
+// by 32 candidates that every thread of the block shares, bit b of each
+// plane word holding candidate b, so the planes are uniform across the
+// block and the state lives in the thread's registers for the whole text
+// loop.  Row j of the [m, W] text is read as windows_t[j * W + w], one
+// coalesced byte per lane.
 
 #pragma once
 
@@ -22,12 +19,11 @@ namespace approx {
 constexpr int kBlock = 256;          // windows per block, one per thread
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// Masks of one text symbol c (0-3 a base, >= 4 N or pad).  With
-// mask0 = peq[C] | peq[T] (pattern bases whose bit 0 is set) and
-// mask1 = peq[G] | peq[T], bit i of (mask0 ^ x0) & (mask1 ^ x1) & vm is set
-// iff pattern base i == c.  Bits at and above k of a field can be set by the
-// select (mask bits there are 0, so a text A sets them); every kernel here
-// only moves bits upward, so they never reach the bit k-1 that is read.
+// Masks of one text symbol c (0-3 a base, >= 4 N or pad): x0 all ones iff
+// bit 0 of c is 0, x1 likewise for bit 1, vm all ones iff c is a base.  For
+// base planes P0 (bit b set iff candidate b's base there has bit 0 set: C,
+// T) and P1 (bit 1: G, T), bit b of (P0 ^ x0) & (P1 ^ x1) & vm is set iff
+// candidate b's base there is c.
 struct TextMasks {
   uint32_t x0, x1, vm;
 };
@@ -53,22 +49,26 @@ __device__ __forceinline__ void scan_text(const uint8_t* __restrict__ windows_t,
   }
 }
 
-// Block-wide sum of each thread's value[s] for s < kSlots, added to
-// out[base + s] for base + s < n_out.  s_acc is kSlots ints of shared
-// memory, zeroed by the caller before a __syncthreads that precedes this.
-template <int kSlots>
-__device__ __forceinline__ void block_add(const int (&value)[kSlots],
-                                          int* s_acc, int32_t* out,
-                                          long long base, long long n_out) {
+// Lane b's base masks of candidate b of the block's 32 SWAR-packed
+// candidates: field b % PACK of word (32 / PACK) * blockIdx.y + b / PACK
+// of words ([n_words, 4] interleaved peq), shifted down to bit 0; zero
+// past n_words.  mask0 holds the pattern bases with bit 0 set (C, T), mask1
+// those with bit 1 set (G, T).  The cores read bits 0 .. k-1 only, and
+// k <= 32 / PACK, so no bit of the next field is read.
+template <int PACK>
+__device__ __forceinline__ void swar_lane_masks(
+    const uint32_t* __restrict__ words, int n_words, uint32_t& mask0,
+    uint32_t& mask1) {
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int sum = __reduce_add_sync(kFull, value[s]);
-    if (lane == 0 && sum) atomicAdd(&s_acc[s], sum);
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < kSlots; s += blockDim.x) {
-    if (base + s < n_out && s_acc[s]) atomicAdd(&out[base + s], s_acc[s]);
+  const long long n =
+      static_cast<long long>(blockIdx.y) * (32 / PACK) + lane / PACK;
+  const int shift = (32 / PACK) * (lane % PACK);
+  mask0 = 0u;
+  mask1 = 0u;
+  if (n < n_words) {
+    const uint32_t* p = words + 4 * n;
+    mask0 = (p[1] | p[3]) >> shift;
+    mask1 = (p[2] | p[3]) >> shift;
   }
 }
 

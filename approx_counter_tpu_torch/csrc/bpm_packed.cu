@@ -44,19 +44,8 @@ bpm_packed_kernel(const uint32_t* __restrict__ words,
                   int maxerr) {
   static_assert((PACK == 2 || PACK == 4) && K <= 32 / PACK,
                 "Myers packs 2 fields for k <= 16, 4 for k <= 8");
-  constexpr int kWords = myers::kCands / PACK;  // SWAR words per block
-  const int lane = threadIdx.x & 31;
-  const long long n =
-      static_cast<long long>(blockIdx.y) * kWords + lane / PACK;
-  const int shift = (32 / PACK) * (lane % PACK);
-  uint32_t mask0 = 0u, mask1 = 0u;
-  if (n < n_words) {
-    // bits 0 .. K-1 of the shifted field become planes: K <= fw, so no bit
-    // of the next field is read
-    const uint32_t* p = words + 4 * n;
-    mask0 = (p[1] | p[3]) >> shift;
-    mask1 = (p[2] | p[3]) >> shift;
-  }
+  uint32_t mask0, mask1;
+  approx::swar_lane_masks<PACK>(words, n_words, mask0, mask1);
   myers::count_word<K>(mask0, mask1, windows_t, wvalid, out,
                        static_cast<long long>(blockIdx.y) * myers::kCands,
                        static_cast<long long>(n_words) * PACK, m, W, maxerr);

@@ -3,11 +3,11 @@
 Each kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The FASTA/FASTQ parser ``csrc/fastx_parser.cpp`` is host C++,
-compiled the same way by ``g++`` (``host_build``).  The sliced level NFA
-is built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``, the two
-bit-sliced Myers kernels once per k with ``-DKMER``; the packed level NFA
-and the stage network take their sizes (k, maxerr and the pack width, or
-the rows and stages) as arguments and are built once each.
+compiled the same way by ``g++`` (``host_build``).  The two level-NFA
+kernels are built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``,
+the two bit-sliced Myers kernels once per k with ``-DKMER``; the stage
+network takes its sizes (the rows and stages) as arguments and is built
+once.
 Libraries go to ``build/torch_kernels/`` beside the package, named by a hash
 of the source, the headers of ``csrc/``, the flags, the compiler's
 ``--version``, the machine and its C library: a changed source rebuilds, an
@@ -174,11 +174,20 @@ def host_build(name: str) -> KernelBuild:
     return _cached((name, "host"), make)
 
 
+def _nfa_build(name: str, k: int, maxerr: int) -> KernelBuild:
+    if not (2 <= k <= 32 and 0 <= maxerr <= 3):
+        raise ValueError(f"no {name} kernel for k={k}, maxerr={maxerr}")
+    return kernel_build(name, (f"-DKMER={k}", f"-DMAXERR={maxerr}"))
+
+
 def nfa_sliced_build(k: int, maxerr: int) -> KernelBuild:
     """The sliced level-NFA library for (k, maxerr), built on first use."""
-    if not (2 <= k <= 32 and 0 <= maxerr <= 3):
-        raise ValueError(f"no nfa_sliced kernel for k={k}, maxerr={maxerr}")
-    return kernel_build("nfa_sliced", (f"-DKMER={k}", f"-DMAXERR={maxerr}"))
+    return _nfa_build("nfa_sliced", k, maxerr)
+
+
+def nfa_packed_build(k: int, maxerr: int) -> KernelBuild:
+    """The packed level-NFA library for (k, maxerr), built on first use."""
+    return _nfa_build("nfa_packed", k, maxerr)
 
 
 def myers_build(name: str, k: int) -> KernelBuild:

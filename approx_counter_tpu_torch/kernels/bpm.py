@@ -21,8 +21,9 @@ Four CUDA kernels compute that function, each behind its own wrapper:
     Both Myers kernels take their candidates apart into bit planes, 32 a
     word, and run one candidate-bit-sliced core (``csrc/myers_sliced.cuh``).
   * ``approx_counts_packed(algo="nfa")`` -> ``csrc/nfa_packed.cu``, the
-    SWAR level NFA with 1-16 candidates per word (replaces
-    ``_nfa_kernel_packed``).
+    level NFA from SWAR words of 1-16 candidates (replaces
+    ``_nfa_kernel_packed``).  It takes its candidates apart into bit planes
+    and runs the sliced NFA's core (``csrc/nfa_sliced.cuh``).
 
 The last three are differential alternates: ``gpu_check`` holds them
 against the plain versions on the card.  The plain versions:
@@ -32,9 +33,10 @@ against the plain versions on the card.  The plain versions:
     The plain version of the sliced and the unpacked Myers kernels.
   * ``approx_counts_packed_ref`` -- the SWAR Myers and SWAR level NFA step
     for step, the plain version of the two packed kernels.
-  * ``approx_counts_myers_sliced_ref`` -- the bit-sliced Myers core step for
-    step, which the tests and ``chip_smoke.py`` hold both Myers kernels
-    against beside the two above.
+  * ``approx_counts_myers_sliced_ref`` and ``approx_counts_nfa_sliced_ref``
+    -- the bit-sliced Myers and level-NFA cores step for step, which the
+    tests and ``chip_smoke.py`` hold the kernels on each core against
+    beside the two above.
 
 Each wrapper dispatches on the tensors' device: the plain version for CPU
 tensors, the kernel for CUDA tensors, and nothing else.
@@ -328,6 +330,57 @@ def approx_counts_myers_sliced_ref(peq: torch.Tensor, windows_t: torch.Tensor,
     return counts.reshape(c_pad)[:C].to(torch.int32)
 
 
+def approx_counts_nfa_sliced_ref(peq: torch.Tensor, windows_t: torch.Tensor,
+                                 window_valid: torch.Tensor, k: int,
+                                 maxerr: int = MAXERR) -> torch.Tensor:
+    """Plain torch version of the candidate-bit-sliced level-NFA core
+    (``csrc/nfa_sliced.cuh``, behind ``nfa_sliced.cu`` and
+    ``nfa_packed.cu``), step for step: 32 candidates a word
+    (``build_sliced_planes``, C padded with zero rows), one state word
+    R[d][i] per level d <= min(maxerr, k - 1) and pattern position i >= d
+    (positions i < d are the all-ones constant), int64 holding uint32.  Per
+    text symbol, Rn_0[i] = R_0[i-1] & Eq[i] and
+    Rn_d[i] = (R_d[i-1] & Eq[i]) | R_{d-1}[i] | R_{d-1}[i-1] | Rn_{d-1}[i-1],
+    the shifts of the word form being the index i - 1; h_d gathers
+    Rn_d[k-1].  Levels above k - 1 hit every valid window.  Same arguments
+    and result as ``approx_counts_ref``."""
+    C = peq.shape[0]
+    m, W = windows_t.shape
+    dev = peq.device
+    c_pad = -(-C // 32) * 32
+    if c_pad != C:  # zero rows decode as poly-A: garbage counts, sliced off
+        peq = torch.cat([peq, peq.new_zeros((c_pad - C, 4))])
+    P0, P1 = build_sliced_planes(peq, k)          # [n_words, k] each
+    n_words = c_pad // 32
+    levels = min(maxerr, k - 1) + 1
+    zero = torch.zeros((n_words, W), dtype=torch.int64, device=dev)
+    R = [[zero] * k for _ in range(levels)]       # entries i < d unread
+    h = [zero] * levels
+    for j in range(m):
+        c = windows_t[j].to(torch.int64)[None, :]
+        x0 = ((c & 1) - 1) & _M32          # all ones iff text bit 0 == 0
+        x1 = (((c >> 1) & 1) - 1) & _M32   # all ones iff text bit 1 == 0
+        vm = ((c - 4) >> 63) & _M32        # N and pad match nothing
+        eq = [(P0[:, i:i + 1] ^ x0) & (P1[:, i:i + 1] ^ x1) & vm
+              for i in range(k)]
+        Rn = [[eq[0]] + [R[0][i - 1] & eq[i] for i in range(1, k)]]
+        for d in range(1, levels):
+            row = [zero] * d
+            for i in range(d, k):
+                match = eq[i] & R[d][i - 1] if i > d else eq[i]
+                row.append(match | R[d - 1][i] | R[d - 1][i - 1]
+                           | Rn[d - 1][i - 1])
+            Rn.append(row)
+        R = Rn
+        h = [hd | r[k - 1] for hd, r in zip(h, R)]
+    lane = torch.arange(32, dtype=torch.int64, device=dev)[None, :, None]
+    counts = sum((((hd[:, None, :] >> lane) & 1) * window_valid).sum(dim=2)
+                 for hd in h)
+    # levels above k - 1: the alignment to the empty substring
+    counts = counts + (maxerr + 1 - levels) * window_valid.sum()
+    return counts.reshape(c_pad)[:C].to(torch.int32)
+
+
 def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 holding uint32 values -> int32 with the same 32 bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
@@ -374,12 +427,11 @@ def _launch(fn, tensors, ints) -> None:
 #: Most candidate groups one launch takes: every kernel puts its groups on
 #: ``grid.y``, which CUDA caps at 65,535 blocks.
 MAX_GRID_Y = 65535
-#: Candidates of one ``grid.y`` block of both Myers kernels (``kCands`` in
-#: ``csrc/myers_sliced.cuh``): ``bpm_myers.cu`` takes that many candidates,
-#: ``bpm_packed.cu`` that many over ``pack`` words.
-MYERS_CANDS = 32
-#: SWAR words of one ``grid.y`` block of ``csrc/nfa_packed.cu`` (``kWords``).
-NFA_PACKED_WORDS = 8
+#: Candidates of one ``grid.y`` block of the kernels on a bit-sliced core
+#: (``kCands`` in ``csrc/myers_sliced.cuh`` and ``csrc/nfa_sliced.cuh``):
+#: ``bpm_myers.cu`` takes that many candidates, ``bpm_packed.cu`` and
+#: ``nfa_packed.cu`` that many over ``pack`` words.
+SLICED_CANDS = 32
 
 
 def word_launches(n_words: int, group: int = 1) -> list[tuple[int, int]]:
@@ -387,9 +439,8 @@ def word_launches(n_words: int, group: int = 1) -> list[tuple[int, int]]:
     kernel that takes ``group`` rows per ``grid.y`` block: one launch up to
     ``MAX_GRID_Y`` groups, then consecutive slices of at most that many.
     The rows are the sliced NFA's 32-candidate words (group 1), unpacked
-    Myers' candidates (group ``MYERS_CANDS``), packed Myers' SWAR words
-    (group ``MYERS_CANDS // pack``) and the packed NFA's (group
-    ``NFA_PACKED_WORDS``)."""
+    Myers' candidates (group ``SLICED_CANDS``) and the two packed kernels'
+    SWAR words (group ``SLICED_CANDS // pack``)."""
     step = MAX_GRID_Y * group
     return [(w, min(step, n_words - w)) for w in range(0, n_words, step)]
 
@@ -459,7 +510,7 @@ def approx_counts_myers(peq: torch.Tensor, windows_t: torch.Tensor,
     peq32 = _as_int32_bits(peq).contiguous()
     out = torch.zeros(C, dtype=torch.int32, device=peq.device)
     fn = myers_build("bpm_myers", k).lib.bpm_myers
-    for c0, n in word_launches(C, MYERS_CANDS):
+    for c0, n in word_launches(C, SLICED_CANDS):
         _launch(fn, (peq32[c0:c0 + n], windows_t, window_valid,
                      out[c0:c0 + n]), (n, m, W, k, maxerr))
         approx_counts_myers.launches += 1
@@ -473,13 +524,14 @@ def approx_counts_packed(peq: torch.Tensor, windows_t: torch.Tensor,
                          window_valid: torch.Tensor, k: int,
                          maxerr: int = MAXERR, pack: int = 2,
                          algo: str = "myers") -> torch.Tensor:
-    """int32 [C] approximate counts by a SWAR kernel, ``pack`` candidates
-    per 32-bit word: ``csrc/bpm_packed.cu`` (``algo="myers"``, pack 2 or 4)
-    or ``csrc/nfa_packed.cu`` (``algo="nfa"``, pack 1, 2, 4, 8 or 16) for
-    CUDA tensors, ``approx_counts_packed_ref`` for CPU tensors.  k must be
-    at most 32 // pack.  Any C: past 65,535 groups (of 32 // pack words for
-    Myers, 2,097,120 candidates; of ``NFA_PACKED_WORDS`` words for the NFA)
-    the words are split over several launches (``word_launches``).
+    """int32 [C] approximate counts by a kernel that takes SWAR words,
+    ``pack`` candidates per 32-bit word: ``csrc/bpm_packed.cu``
+    (``algo="myers"``, pack 2 or 4) or ``csrc/nfa_packed.cu``
+    (``algo="nfa"``, pack 1, 2, 4, 8 or 16) for CUDA tensors,
+    ``approx_counts_packed_ref`` for CPU tensors.  k must be at most
+    32 // pack.  Any C: past 65,535 groups of 32 // pack words (2,097,120
+    candidates) the words are split over several launches
+    (``word_launches``).
     ``approx_counts_packed.launches[algo]`` counts each kernel's launches.
 
     The counterpart of the JAX package's ``approx_counts_pallas_packed``;
@@ -498,19 +550,17 @@ def approx_counts_packed(peq: torch.Tensor, windows_t: torch.Tensor,
                                         maxerr, pack, algo)
 
     from approx_counter_tpu_torch.kernels._build import (
-        kernel_build,
         myers_build,
+        nfa_packed_build,
     )
 
     words = _as_int32_bits(interleave_peq(peq, pack)).contiguous()
     out = torch.zeros(words.shape[0] * pack, dtype=torch.int32, device=peq.device)
     if algo == "myers":
         fn = myers_build("bpm_packed", k).lib.bpm_packed
-        group = MYERS_CANDS // pack
     else:
-        fn = kernel_build("nfa_packed").lib.nfa_packed
-        group = NFA_PACKED_WORDS
-    for w0, n in word_launches(words.shape[0], group):
+        fn = nfa_packed_build(k, maxerr).lib.nfa_packed
+    for w0, n in word_launches(words.shape[0], SLICED_CANDS // pack):
         _launch(fn, (words[w0:w0 + n], windows_t, window_valid,
                      out[pack * w0:pack * (w0 + n)]), (n, m, W, k, maxerr, pack))
         approx_counts_packed.launches[algo] += 1

@@ -299,6 +299,12 @@ class Engine:
                         if self.device.type == "cuda" else None)
         self._pool = None
 
+    def close(self) -> None:
+        """Wait for every dispatched pass, dropping its result and its
+        exception, and stop the worker thread.  A pass dispatched after
+        this raises."""
+        self._worker.shutdown(wait=True)
+
     def _on_stream(self, body, ready, tensors: tuple):
         """Run ``body`` on the worker thread: on the CPU as it is, on a
         CUDA device on the engine's stream once the batch is ``ready``.
@@ -618,48 +624,55 @@ def run_pipeline(prm: Params, log: Log | None = None, *, device) -> int:
             exact_sel, approx_sel, resume=resume_codes is not None,
         )
 
-    for current_run in range(prm.nb_of_runs):
-        run_suffix = f"_{current_run}"
-        if prm.nb_of_runs > 1 and v > 0:
-            print(f"Starting run number {current_run + 1}")
+    # A pass prefetched when the run stops early (an export failure, an
+    # exception) still counts on the worker: close() waits for it and
+    # drops its result, so no pass outlives the run.
+    try:
+        for current_run in range(prm.nb_of_runs):
+            run_suffix = f"_{current_run}"
+            if prm.nb_of_runs > 1 and v > 0:
+                print(f"Starting run number {current_run + 1}")
 
-        stream_batches = None
-        if prm.stream:
-            # one reservoir pass over the file per run, the rng carried on
-            if mr_v > 0:
-                log("Streaming pass (reservoir sampling both ends)", tab_level)
-            b_start, b_end, n_reads = stream_sample_windows(
-                prm.input_file, sn, prm.sl, rng=rng, pad_to=1,
-                end_is_start=quirk_end_is_start, v=mr_v,
-            )
-            stream_batches = {"start": b_start, "end": b_end}
-            if v > 0 and current_run == 0:
-                log(f"Number of sequences found: {n_reads}.", tab_level)
-        else:
-            n_reads = len(reads)
-
-        if sn > n_reads:  # clamp-by-mutation quirk (:844-848)
-            warn("Sequence set too small for the requested sample size")
-            warn("The whole set will be used.")
-            sn = n_reads
-
-        tab_level += 1
-        for which_end in ("start", "end"):
-            with torch.profiler.record_function(f"{which_end} pass"):
-                if not one_end(current_run, which_end, stream_batches,
-                               run_suffix):
-                    return 1
-
-            if prm.skip_end:
-                # runs_end_pass decides both whether the end pass runs and
-                # whether next_pass_key prefetches it: were they to differ,
-                # a prefetched pass would be orphaned and its sampling
-                # would shift the seeded rng stream.
-                # Reference bug (compat_quirks): the break sits inside
-                # if(mr_v>0), so muted runs process the end anyway.
+            stream_batches = None
+            if prm.stream:
+                # one reservoir pass over the file per run, the rng carried on
                 if mr_v > 0:
-                    log("Skipping end adapter ressearch")
-                if not runs_end_pass:
-                    break
-        tab_level -= 1
-    return 0
+                    log("Streaming pass (reservoir sampling both ends)",
+                        tab_level)
+                b_start, b_end, n_reads = stream_sample_windows(
+                    prm.input_file, sn, prm.sl, rng=rng, pad_to=1,
+                    end_is_start=quirk_end_is_start, v=mr_v,
+                )
+                stream_batches = {"start": b_start, "end": b_end}
+                if v > 0 and current_run == 0:
+                    log(f"Number of sequences found: {n_reads}.", tab_level)
+            else:
+                n_reads = len(reads)
+
+            if sn > n_reads:  # clamp-by-mutation quirk (:844-848)
+                warn("Sequence set too small for the requested sample size")
+                warn("The whole set will be used.")
+                sn = n_reads
+
+            tab_level += 1
+            for which_end in ("start", "end"):
+                with torch.profiler.record_function(f"{which_end} pass"):
+                    if not one_end(current_run, which_end, stream_batches,
+                                   run_suffix):
+                        return 1
+
+                if prm.skip_end:
+                    # runs_end_pass decides both whether the end pass runs and
+                    # whether next_pass_key prefetches it: were they to differ,
+                    # a prefetched pass would be orphaned and its sampling
+                    # would shift the seeded rng stream.
+                    # Reference bug (compat_quirks): the break sits inside
+                    # if(mr_v>0), so muted runs process the end anyway.
+                    if mr_v > 0:
+                        log("Skipping end adapter ressearch")
+                    if not runs_end_pass:
+                        break
+            tab_level -= 1
+        return 0
+    finally:
+        engine.close()

@@ -7,18 +7,23 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   1. Card: print ``nvidia-smi`` name and power limit, build every CUDA
      kernel the phases use from ``approx_counter_tpu_torch/csrc`` with nvcc
      (one process per library, all at once), print the build seconds and
-     the ptxas register and spill report.
-  2. The sliced level NFA vs its plain torch version on the card, exact
-     integer equality: the default-run shape (C=500, W=40,000, m=101,
-     k=16, maxerr=2, with N and pad symbols and invalid tail windows) and
-     small shapes at k in {2, 3, 16, 31, 32} x maxerr 0-3.  Both times at
-     the main shape, from CUDA events, warm-up excluded.
+     each kernel instance's ptxas registers and spills.
+  2. The sliced level NFA vs its plain torch version and the plain
+     bit-sliced NFA core (``approx_counts_nfa_sliced_ref``) on the card,
+     exact integer equality: the default-run shape (C=500, W=40,000,
+     m=101, k=16, maxerr=2, with N and pad symbols and invalid tail
+     windows) and small shapes at k in {2, 3, 16, 31, 32} x maxerr 0-3.
+     Both times at the main shape, from CUDA events, warm-up excluded
+     (20 calls for the kernel, 2 for the plain version).
   3. The three alternate kernels (unpacked Myers, packed Myers, packed
-     NFA) at the default-run shape, k=16 (and pack 4 at k=8): each equal to
-     its plain version and to the plain Myers scan (the two Myers kernels
-     also to ``approx_counts_myers_sliced_ref``), with both times; each
-     time, the sliced NFA's too, over its own bound and over the function
-     bound at its k (the least own bound of the four count kernels there).
+     NFA) at the default-run shape, k=16 (and pack 4 at k=8; the packed
+     NFA also at pack 1): each equal to its plain version, to the plain
+     Myers scan and to the plain bit-sliced core it runs
+     (``approx_counts_myers_sliced_ref`` or ``approx_counts_nfa_sliced_ref``),
+     with both times; the packed NFA's text-loop SASS beside the sliced
+     NFA's at the same k and maxerr (equal up to its prologue); each time,
+     the sliced NFA's too, over its own bound and over the function bound
+     at its k (the least own bound of the four count kernels there).
  3b. The search-scheme oracle: every approximate-count kernel (the sliced
      NFA, unpacked Myers, packed Myers at pack 2 and 4 and the packed NFA
      at pack 1-16, wherever k <= 32 / pack) and every plain version equal
@@ -27,8 +32,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      default run's widths (k=16, m=101, maxerr 2, C=40, W=260), on
      windows with occurrences at the edges, one edit away, valid prefixes
      shorter than k, all N, symbols 0-5 and invalid windows; each kernel
-     launched; ``approx_counts_myers_sliced_ref`` equal to it too.  Then ``approx_count_rank`` (a fifth of the slots padding)
-     on the card equal to its CPU result.
+     launched; both plain bit-sliced cores equal to it too.  Then
+     ``approx_count_rank`` (a fifth of the slots padding) on the card equal
+     to its CPU result.
   4. The default CLI run (sn=40000, sl=100, k=16, top-500, --max-error 2,
      both ends) on a seeded synthetic FASTA of 50,000 reads with planted
      adapters, through ``approx_counter_tpu_torch.__main__.main``: rc 0, the
@@ -56,10 +62,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      on ~4,000 rows (1,024 at random, the 1,000 on each side of candidate
      2,097,120 and the last 1,000), and its first 2,097,120 counts equal to
      one launch over those candidates alone; its time and bound.  The same
-     at C=2,100,000, W=512 for unpacked Myers and packed Myers at pack 2
-     (past 65,535 groups of 32 candidates: two launches each, also equal to
-     ``approx_counts_myers_sliced_ref``) and the packed NFA at pack 1 (past
-     65,535 groups of 8 words, 524,280 candidates: five launches).
+     at C=2,100,000, W=512 for unpacked Myers, packed Myers at pack 2 and
+     the packed NFA at pack 1 (past 65,535 groups of 32 candidates: two
+     launches each, also equal to the plain bit-sliced core each runs).
   9. Solid mode at full size: the default run at -sk 20 and at -sk 1.  The
      exact export holds n_keep lines, every count >= N, in CompareCount
      order; the approximate one min(n_keep, 500), adapters on top; the
@@ -102,8 +107,7 @@ memory rate and the time of the busiest limit of its text loop's SASS
 (from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
 ALU pipe's instructions over 64 lanes per SM, the FMA-heavy pipe's over
 64, every instruction over the 128 that issue per SM and clock; a thread
-carries 32 candidates in the sliced NFA and both Myers kernels, 8 words of
-``pack`` candidates in the packed NFA.  The four compute one function, so
+carries 32 candidates in every one of them.  The four compute one function, so
 the least of their bounds at a k is the function's bound there.  The
 stage network's counts one min or max per element and stage on the ALU
 pipe.  A kernel that beats its bound fails its phase: the model is wrong
@@ -147,18 +151,13 @@ sys.path.insert(0, REPO)
 
 CSRC = "approx_counter_tpu_torch/csrc"
 TPU_BPM = "approx_counter_tpu/kernels/bpm.py"
-# kernel -> (source, Pallas kernel it replaces, (words a thread carries,
-# candidates a word: 32 for the bit-sliced words of the sliced NFA and both
-# Myers kernels whatever the pack, None for the packed NFA's SWAR words of
-# ``pack`` candidates); None for the stage network, which counts no
-# candidates)
+# kernel -> (source, Pallas kernel it replaces)
 KERNELS = {
-    "nfa_sliced": (f"{CSRC}/nfa_sliced.cu", f"{TPU_BPM}:718", (1, 32)),
-    "bpm_myers": (f"{CSRC}/bpm_myers.cu", f"{TPU_BPM}:264", (1, 32)),
-    "bpm_packed": (f"{CSRC}/bpm_packed.cu", f"{TPU_BPM}:399", (1, 32)),
-    "nfa_packed": (f"{CSRC}/nfa_packed.cu", f"{TPU_BPM}:505", (8, None)),
-    "sort_stage": (f"{CSRC}/sort_stage.cu", "native/sort_stage_probe5.py:48",
-                   None),
+    "nfa_sliced": (f"{CSRC}/nfa_sliced.cu", f"{TPU_BPM}:718"),
+    "bpm_myers": (f"{CSRC}/bpm_myers.cu", f"{TPU_BPM}:264"),
+    "bpm_packed": (f"{CSRC}/bpm_packed.cu", f"{TPU_BPM}:399"),
+    "nfa_packed": (f"{CSRC}/nfa_packed.cu", f"{TPU_BPM}:505"),
+    "sort_stage": (f"{CSRC}/sort_stage.cu", "native/sort_stage_probe5.py:48"),
 }
 SMALL_KS = (2, 3, 16, 31, 32)
 MAIN = dict(C=500, W=40000, m=101, maxerr=2, n_invalid=333)
@@ -209,48 +208,66 @@ def phase_build() -> dict:
         host_build,
         kernel_build,
         myers_build,
+        nfa_packed_build,
         nfa_sliced_build,
     )
 
-    # every k at which a phase runs the Myers kernels (packed Myers only
-    # up to 16): one library each
-    myers_ks = sorted({*SS_KS, *CHECK_KS, *(k for _, k, _ in ALTERNATES)})
+    # every k at which a phase runs the alternate kernels (packed Myers only
+    # up to 16): one library each, per maxerr for the packed NFA
+    alt_ks = sorted({*SS_KS, *CHECK_KS, *(k for _, k, _ in ALTERNATES)})
     jobs = {("nfa_sliced", k, e): (nfa_sliced_build, (k, e))
             for k in SMALL_KS + SS_KS + (17,) for e in range(4)}
+    jobs.update({("nfa_packed", k, e): (nfa_packed_build, (k, e))
+                 for k in alt_ks for e in range(4)})
     jobs.update({("bpm_myers", k): (myers_build, ("bpm_myers", k))
-                 for k in myers_ks})
+                 for k in alt_ks})
     jobs.update({("bpm_packed", k): (myers_build, ("bpm_packed", k))
-                 for k in myers_ks if k <= 16})
-    jobs.update({(name,): (kernel_build, (name,))
-                 for name in ("nfa_packed", "sort_stage")})
+                 for k in alt_ks if k <= 16})
+    jobs[("sort_stage",)] = (kernel_build, ("sort_stage",))
     jobs[("fastx_parser",)] = (host_build, ("fastx_parser",))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         futs = {key: ex.submit(fn, *args) for key, (fn, args) in jobs.items()}
         builds = {key: f.result() for key, f in futs.items()}
     wall = time.perf_counter() - t0
-    shown = [("nfa_sliced", 16, 2), ("nfa_sliced", 32, 3), ("bpm_myers", 16),
+    shown = [("nfa_sliced", 16, 2), ("nfa_sliced", 32, 3),
+             ("nfa_packed", 16, 2), ("nfa_packed", 32, 3), ("bpm_myers", 16),
              ("bpm_myers", 32), ("bpm_packed", 16), ("bpm_packed", 8),
-             ("nfa_packed",), ("sort_stage",), ("fastx_parser",)]
+             ("sort_stage",), ("fastx_parser",)]
     log(f"[build] {len(builds)} libraries in {wall:.2f} s wall (one nvcc "
         f"each, all at once): " + ", ".join(
             f"{'/'.join(map(str, key))} {builds[key].seconds:.2f} s"
             for key in shown))
-    for key in shown:
-        fn = None
-        for line in builds[key].log.splitlines():
-            mf = re.search(r"Compiling entry function '(\S+)'", line)
-            if mf:
-                fn = re.search(r"kernel(IL[bi].*?EE)?", mf.group(1)).group(1) or ""
-            elif "registers" in line or "spill" in line:
-                log(f"[build] {'/'.join(map(str, key))} {fn}: {line.strip()}")
+    # ptxas: each kernel instance's registers and spill bytes
+    for key, build in builds.items():
+        if key[0] != "fastx_parser":
+            log(f"[ptxas] {'/'.join(map(str, key))}: " + "; ".join(
+                f"{fn} {regs} registers, spill {st}/{ld} B"
+                for fn, regs, st, ld in ptxas_report(build.log)))
     return builds
 
 
-def sass_loops(so, sym: str) -> list[list[str]]:
-    """The backward-branch loops of the one function of library ``so`` whose
-    mangled name holds ``sym``, from cuobjdump: each loop's instructions
-    (predicates stripped), the largest loop first."""
+def ptxas_report(log_text: str) -> list[tuple[str, int, int, int]]:
+    """(template arguments, registers, spill store and load bytes) of each
+    kernel in a ``-Xptxas -v`` log."""
+    rows, fn, spill = [], "", (0, 0)
+    for line in log_text.splitlines():
+        mf = re.search(r"Compiling entry function '(\S+)'", line)
+        ms = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        mr = re.search(r"Used (\d+) registers", line)
+        if mf:
+            fn = re.search(r"kernel(IL[bi].*?EE)?", mf.group(1)).group(1) or ""
+        elif ms:
+            spill = int(ms.group(1)), int(ms.group(2))
+        elif mr:
+            rows.append((fn, int(mr.group(1)), *spill))
+    return rows
+
+
+def sass_function(so, sym: str) -> list[tuple[int, str]]:
+    """(address, instruction) of the one function of library ``so`` whose
+    mangled name holds ``sym``, from cuobjdump, predicates stripped."""
     from approx_counter_tpu_torch.kernels._build import _nvcc
 
     sass = subprocess.run(
@@ -260,12 +277,28 @@ def sass_loops(so, sym: str) -> list[list[str]]:
              if sym in f.split(None, 1)[0]]
     if len(funcs) != 1:
         raise AssertionError(f"{len(funcs)} functions match {sym} in {so}")
-    ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", i.strip())) for a, i in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", funcs[0])]
+    return [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", i.strip())) for a, i in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", funcs[0])]
+
+
+def loop_spans(ins: list[tuple[int, str]]) -> list[tuple[int, int]]:
+    """(first, last address) of each backward-branch loop, largest first."""
     loops = sorted(((a - int(t, 16), int(t, 16), a) for a, i in ins
                     for t in re.findall(r"^BRA\s+(?:`\()?0x([0-9a-f]+)", i)
                     if int(t, 16) < a), reverse=True)
-    return [[i for a, i in ins if lo <= a <= hi] for _, lo, hi in loops]
+    return [(lo, hi) for _, lo, hi in loops]
+
+
+def sass_loops(so, sym: str) -> list[list[str]]:
+    """The backward-branch loops of ``sym`` in ``so``: each loop's
+    instructions, the largest loop first."""
+    ins = sass_function(so, sym)
+    return [[i for a, i in ins if lo <= a <= hi] for lo, hi in loop_spans(ins)]
+
+
+def kernel_sym(kernel: str, targs: tuple) -> str:
+    return f"{kernel}_kernel" + (
+        "I" + "".join(f"Li{a}E" for a in targs) + "E" if targs else "E")
 
 
 def sass_ops_per_step(so, kernel: str, targs: tuple = ()) -> dict:
@@ -273,8 +306,7 @@ def sass_ops_per_step(so, kernel: str, targs: tuple = ()) -> dict:
     all its candidates) for each limit of ``LANES``: those of the kernel's
     largest backward-branch loop that match ALU_PIPE, FMA_PIPE and all of
     them, over the loop's text-byte loads (steps per iteration)."""
-    sym = f"{kernel}_kernel" + (
-        "I" + "".join(f"Li{a}E" for a in targs) + "E" if targs else "E")
+    sym = kernel_sym(kernel, targs)
     body = sass_loops(so, sym)[0]
     steps = sum("LDG.E.U8" in i for i in body)
     if steps < 1:
@@ -282,6 +314,15 @@ def sass_ops_per_step(so, kernel: str, targs: tuple = ()) -> dict:
     return {"alu": sum(bool(ALU_PIPE.match(i)) for i in body) / steps,
             "fma": sum(bool(FMA_PIPE.match(i)) for i in body) / steps,
             "issue": len(body) / steps}
+
+
+def sass_prologue_alu(so, kernel: str, targs: tuple) -> int:
+    """ALU-pipe instructions of ``kernel`` before its text loop (its
+    largest backward-branch loop): the plane prologue and the state's
+    set-up."""
+    ins = sass_function(so, kernel_sym(kernel, targs))
+    first = loop_spans(ins)[0][0]
+    return sum(bool(ALU_PIPE.match(i)) for a, i in ins if a < first)
 
 
 def ops_text(ops: dict) -> str:
@@ -317,14 +358,12 @@ def roofline(ops: dict, nbytes: float, clock_hz: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(kernel: str, ops_per_step: dict, C: int, pack: int,
-          clock_hz: float, m: int = MAIN["m"],
+def bound(ops_per_step: dict, C: int, clock_hz: float, m: int = MAIN["m"],
           W: int = MAIN["W"]) -> tuple[float, str]:
-    """(bound ms, what bounds it) for C candidates and W windows of m
-    symbols (the main shape by default)."""
-    words, per_word = KERNELS[kernel][2]
-    per_thread = words * (per_word or pack)
-    steps = m * W * -(-C // per_thread)
+    """(bound ms, what bounds it) of a count kernel, whose thread carries
+    one 32-candidate word, for C candidates and W windows of m symbols
+    (the main shape by default)."""
+    steps = m * W * -(-C // 32)
     # inputs once: int64 peq [C, 4], text [m, W], valid [W]; int32 out [C]
     return roofline({pipe: n * steps for pipe, n in ops_per_step.items()},
                     32 * C + m * W + W + 4 * C, clock_hz)
@@ -360,6 +399,11 @@ def random_case(rng, C: int, W: int, m: int, k: int, n_invalid: int):
     valid = np.ones(W, bool)
     valid[W - n_invalid:] = False
     return codes, np.ascontiguousarray(wins.T), valid
+
+
+# warm-up calls before a count kernel's main-shape timing (phases 2 and 3):
+# two calls of 0.7 ms do not settle the card for the run's first timing
+KERNEL_WARMUP = 20
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -427,6 +471,7 @@ def phase_kernel(builds: dict, clock_hz: float) -> dict:
 
     from approx_counter_tpu_torch.kernels.bpm import (
         approx_counts,
+        approx_counts_nfa_sliced_ref,
         approx_counts_ref,
         build_peq,
     )
@@ -440,25 +485,31 @@ def phase_kernel(builds: dict, clock_hz: float) -> dict:
             args = (build_peq(torch.from_numpy(codes).to(dev), k),
                     torch.from_numpy(wins_t).to(dev),
                     torch.from_numpy(valid).to(dev), k, e)
-            max_err = max(max_err, exact_diff(
-                approx_counts(*args), approx_counts_ref(*args),
-                f"nfa_sliced != plain at C=40 W=300 m=40 k={k} maxerr={e}"))
+            got = approx_counts(*args)
+            for plain in (approx_counts_ref, approx_counts_nfa_sliced_ref):
+                max_err = max(max_err, exact_diff(
+                    got, plain(*args), f"nfa_sliced != {plain.__name__} at "
+                    f"C=40 W=300 m=40 k={k} maxerr={e}"))
     log(f"[kernel] {len(SMALL_KS) * 4} small shapes (C=40 W=300 m=40, "
-        f"k in {SMALL_KS} x maxerr 0-3): kernel == plain exactly")
+        f"k in {SMALL_KS} x maxerr 0-3): kernel == plain == "
+        f"approx_counts_nfa_sliced_ref exactly")
 
     k, e = 16, MAIN["maxerr"]
     args = (*main_case(rng, k), k, e)
-    max_err = max(max_err, exact_diff(approx_counts(*args),
-                                      approx_counts_ref(*args),
-                                      "nfa_sliced != plain at the main shape"))
-    ms = time_ms(lambda: approx_counts(*args), 20)
+    got = approx_counts(*args)
+    for plain in (approx_counts_ref, approx_counts_nfa_sliced_ref):
+        max_err = max(max_err, exact_diff(
+            got, plain(*args), f"nfa_sliced != {plain.__name__} at the main "
+            f"shape"))
+    ms = time_ms(lambda: approx_counts(*args), 20, KERNEL_WARMUP)
     plain_ms = time_ms(lambda: approx_counts_ref(*args), 3)
     ops = sass_ops_per_step(builds[("nfa_sliced", k, e)].so, "nfa_sliced",
                             (k, e))
-    bound_ms, bound_by = bound("nfa_sliced", ops, MAIN["C"], 1, clock_hz)
+    bound_ms, bound_by = bound(ops, MAIN["C"], clock_hz)
     log(f"[kernel] main shape C=500 W=40000 m=101 k=16 maxerr=2: "
-        f"kernel == plain exactly; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms (CUDA events, mean of 20 / 3 calls after 2 warm-up); bound "
+        f"kernel == plain == approx_counts_nfa_sliced_ref exactly; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of 20 / 3 "
+        f"calls after {KERNEL_WARMUP} / 2 warm-up); bound "
         f"{bound_ms:.4f} ms ({bound_by}; SASS ops per step and 32-candidate "
         f"word: {ops_text(ops)})")
     not_under("nfa_sliced at the main shape", ms, bound_ms)
@@ -481,13 +532,16 @@ def sass_targs(kernel: str, k: int, pack: int, e: int) -> tuple:
         return (kernel, k), (k,)
     if kernel == "bpm_packed":
         return (kernel, k), (k, pack)
-    return (kernel,), (pack, e)
+    return (kernel, k, e), (k, e, pack)
 
 
 def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
     """The three alternate kernels at the default-run shape: each equal to
-    its plain version and to the plain Myers scan (the Myers kernels also
-    to the plain bit-sliced core); both times and the bound.  Then each
+    its plain version, to the plain Myers scan and to the plain bit-sliced
+    core it runs (Myers' or the level NFA's); both times and the bound.
+    The packed NFA's text loop runs the sliced NFA's core: its SASS per
+    step may differ from ``nfa_sliced``'s at the same k and maxerr by no
+    more than its prologue's ALU ops spread over the m steps.  Then each
     time, and the sliced NFA's (``sliced``: phase 2's entry at k=16),
     against the kernel's own bound and against the function's: the least
     own bound of the four count kernels at that k.  Returns each kernel's
@@ -497,6 +551,7 @@ def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
     from approx_counter_tpu_torch.kernels.bpm import (
         approx_counts_myers,
         approx_counts_myers_sliced_ref,
+        approx_counts_nfa_sliced_ref,
         approx_counts_packed,
         approx_counts_packed_ref,
         approx_counts_ref,
@@ -507,10 +562,11 @@ def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
     entries = {}
     rows = [("nfa_sliced k=16", 16, sliced["ms"], sliced["bound_ms"])]
     own = {}  # k -> {configuration: (own bound ms, bound by)}
+    sliced_ops = {}  # k -> nfa_sliced's SASS ops per step
     for k in sorted({k for _, k, _ in ALTERNATES}):
         key, targs = sass_targs("nfa_sliced", k, 1, e)
-        own[k] = {"nfa_sliced": bound("nfa_sliced", sass_ops_per_step(
-            builds[key].so, "nfa_sliced", targs), MAIN["C"], 1, clock_hz)}
+        sliced_ops[k] = sass_ops_per_step(builds[key].so, "nfa_sliced", targs)
+        own[k] = {"nfa_sliced": bound(sliced_ops[k], MAIN["C"], clock_hz)}
     for kernel, k, pack in ALTERNATES:
         args = (*main_case(rng, k), k, e)
         if kernel == "bpm_myers":
@@ -528,23 +584,34 @@ def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
                 return approx_counts_packed_ref(*a, pack, algo)
 
             plains = [plain, approx_counts_ref]
-        if kernel != "nfa_packed":
-            plains.append(approx_counts_myers_sliced_ref)
+        plains.append(approx_counts_nfa_sliced_ref if kernel == "nfa_packed"
+                      else approx_counts_myers_sliced_ref)
         what = f"{kernel} k={k} pack={pack}"
         got = fn()
         err = max(exact_diff(got, p(*args), f"{what} != {p.__name__}")
                   for p in plains)
-        ms = time_ms(fn, 20)
+        ms = time_ms(fn, 20, KERNEL_WARMUP)
         plain_ms = time_ms(lambda: plains[0](*args), 3)
         key, targs = sass_targs(kernel, k, pack, e)
         ops = sass_ops_per_step(builds[key].so, kernel, targs)
-        bound_ms, bound_by = bound(kernel, ops, MAIN["C"], pack, clock_hz)
+        bound_ms, bound_by = bound(ops, MAIN["C"], clock_hz)
         own[k][f"{kernel} pack {pack}"] = bound_ms, bound_by
         log(f"[alternates] {what} maxerr={e} at C=500 W=40000 m=101: == "
             f"{', '.join(p.__name__ for p in plains)} exactly; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; SASS ops per step and thread: {ops_text(ops)})")
         not_under(what, ms, bound_ms)
+        if kernel == "nfa_packed":
+            prologue = sass_prologue_alu(builds[key].so, kernel, targs)
+            diff = ops["alu"] - sliced_ops[k]["alu"]
+            log(f"[alternates] {what} maxerr={e}: text loop SASS per step "
+                f"{ops_text(ops)}, nfa_sliced k={k} maxerr={e} "
+                f"{ops_text(sliced_ops[k])}; ALU {diff:+g} per step, the "
+                f"prologue's {prologue} ALU ops over m={MAIN['m']} steps "
+                f"{prologue / MAIN['m']:.2f}")
+            if abs(diff) > prologue / MAIN["m"]:
+                raise AssertionError(f"{what}: its text loop is not the "
+                                     f"sliced NFA's ({diff:+g} ALU per step)")
         rows.append((what, k, ms, bound_ms))
         entries.setdefault(kernel, dict(k=k, max_abs_err=err, ms=ms,
                                         plain_ms=plain_ms, bound_ms=bound_ms))
@@ -589,6 +656,7 @@ def phase_searchscheme() -> None:
     from approx_counter_tpu_torch.gpu_check import kernel_runs, searchscheme_case
     from approx_counter_tpu_torch.kernels.bpm import (
         approx_counts_myers_sliced_ref,
+        approx_counts_nfa_sliced_ref,
         build_peq,
     )
     from approx_counter_tpu_torch.searchscheme import search_scheme_error_count
@@ -621,9 +689,11 @@ def phase_searchscheme() -> None:
                        f"{what}: plain version != search_scheme_error_count")
             held.setdefault(SS_KERNEL[name.rstrip("0123456789")], []).append(
                 name)
-        exact_diff(approx_counts_myers_sliced_ref(*args), want,
-                   f"approx_counts_myers_sliced_ref at k={k} maxerr={e} C={C} "
-                   f"W={W} m={m} != search_scheme_error_count")
+        for core in (approx_counts_myers_sliced_ref,
+                     approx_counts_nfa_sliced_ref):
+            exact_diff(core(*args), want,
+                       f"{core.__name__} at k={k} maxerr={e} C={C} W={W} "
+                       f"m={m} != search_scheme_error_count")
     launches = launch_counts()
     idle = [name for name in held if launches[name] < 1]
     if idle or len(held) != 4:
@@ -632,8 +702,8 @@ def phase_searchscheme() -> None:
     wall = time.perf_counter() - t_phase
     log(f"[searchscheme] {len(cases)} cases: k in {SS_KS} x maxerr 0-3 at "
         f"C=8 W=32 m=40, k=16 maxerr 2 at C=40 W=260 m=101; "
-        f"approx_counts_myers_sliced_ref == search_scheme_error_count in "
-        f"each")
+        f"approx_counts_myers_sliced_ref and approx_counts_nfa_sliced_ref "
+        f"== search_scheme_error_count in each")
     for kernel, names in held.items():
         configs = ", ".join(sorted(set(names), key=names.index))
         log(f"[searchscheme] {kernel} ({configs}): {len(names)} cases == "
@@ -882,10 +952,10 @@ def phase_sort_stage(builds: dict, clock_hz: float) -> tuple[dict, int]:
             f"warm-up); bound {bound_ms:.4f} ms ({bound_by}); "
             f"{run * rows * 128 / ms / 1e9:.4f} T elem-stages/s")
         not_under(f"sort_stage, transpose every {te}", ms, bound_ms)
-        if entry is None:
+        if entry is None:  # its own bound is its function's
             entry = dict(max_abs_err=max(max_err, err), ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         own_bound_ms=bound_ms, bound_by=bound_by)
     per_trip = sass_minmax_per_stage_trip(builds[("sort_stage",)].so)
     log(f"[sort_stage] SASS integer min/max per stage-loop trip: {per_trip} "
         f"(one stage a trip, runtime trip count)")
@@ -954,8 +1024,7 @@ def phase_limit(builds: dict, clock_hz: float) -> dict:
     ms = time_ms(lambda: bpm.approx_counts(peq, *args), 3)
     ops = sass_ops_per_step(builds[("nfa_sliced", k, e)].so, "nfa_sliced",
                             (k, e))
-    bound_ms, bound_by = bound("nfa_sliced", ops, C, 1, clock_hz,
-                               LIMIT["m"], LIMIT["W"])
+    bound_ms, bound_by = bound(ops, C, clock_hz, LIMIT["m"], LIMIT["W"])
     not_under(f"nfa_sliced at C={C}", ms, bound_ms)
     log(f"[limit] C={C} ({C // 32} words) W={LIMIT['W']} m={LIMIT['m']} "
         f"k=16 maxerr=2: {launches} launches {plan}; kernel == plain on "
@@ -967,9 +1036,8 @@ def phase_limit(builds: dict, clock_hz: float) -> dict:
                 bound_by=bound_by)
 
 
-# past the alternate kernels' one-launch limits: 65,535 groups on grid.y,
-# of 32 candidates for both Myers kernels (2,097,120 candidates) and of 8
-# SWAR words for the packed NFA (524,280 at pack 1)
+# past the alternate kernels' one-launch limits: 65,535 groups of 32
+# candidates on grid.y (2,097,120 candidates)
 ALT_LIMIT = dict(C=2_100_000, W=512, m=101)
 
 
@@ -977,7 +1045,7 @@ def phase_alt_limit(builds: dict, clock_hz: float) -> None:
     """Phase 8, continued: unpacked Myers, packed Myers at pack 2 and the
     packed NFA at pack 1 at C=2,100,000, past each one's one-launch limit:
     each split over its launch plan, equal to its plain versions on ~4,000
-    rows (the Myers kernels also to the plain bit-sliced core) and, on the
+    rows (each also to the plain bit-sliced core it runs) and, on the
     candidates of one launch, to one launch over those alone."""
     import torch
 
@@ -995,20 +1063,21 @@ def phase_alt_limit(builds: dict, clock_hz: float) -> None:
     # kernel -> (pack, rows of a grid.y group, wrapper, plain versions,
     # launch count)
     cases = {
-        "bpm_myers": (1, bpm.MYERS_CANDS, bpm.approx_counts_myers,
+        "bpm_myers": (1, bpm.SLICED_CANDS, bpm.approx_counts_myers,
                       [bpm.approx_counts_ref,
                        bpm.approx_counts_myers_sliced_ref],
                       lambda: bpm.approx_counts_myers.launches),
-        "bpm_packed": (2, bpm.MYERS_CANDS // 2,
+        "bpm_packed": (2, bpm.SLICED_CANDS // 2,
                        P(bpm.approx_counts_packed, pack=2, algo="myers"),
                        [P(bpm.approx_counts_packed_ref, pack=2, algo="myers"),
                         bpm.approx_counts_ref,
                         bpm.approx_counts_myers_sliced_ref],
                        lambda: bpm.approx_counts_packed.launches["myers"]),
-        "nfa_packed": (1, bpm.NFA_PACKED_WORDS,
+        "nfa_packed": (1, bpm.SLICED_CANDS,
                        P(bpm.approx_counts_packed, pack=1, algo="nfa"),
                        [P(bpm.approx_counts_packed_ref, pack=1, algo="nfa"),
-                        bpm.approx_counts_ref],
+                        bpm.approx_counts_ref,
+                        bpm.approx_counts_nfa_sliced_ref],
                        lambda: bpm.approx_counts_packed.launches["nfa"]),
     }
     for name, (pack, group, fn, plains, count) in cases.items():
@@ -1038,8 +1107,8 @@ def phase_alt_limit(builds: dict, clock_hz: float) -> None:
         ms = time_ms(lambda: fn(peq, *args), 3)
         key, targs = sass_targs(name, k, pack, e)
         ops = sass_ops_per_step(builds[key].so, name, targs)
-        bound_ms, bound_by = bound(name, ops, C, pack, clock_hz,
-                                   ALT_LIMIT["m"], ALT_LIMIT["W"])
+        bound_ms, bound_by = bound(ops, C, clock_hz, ALT_LIMIT["m"],
+                                   ALT_LIMIT["W"])
         not_under(f"{name} at C={C}", ms, bound_ms)
         log(f"[limit] {name} pack {pack} C={C} W={ALT_LIMIT['W']} "
             f"m={ALT_LIMIT['m']} k=16 maxerr=2: {launches} launches "
@@ -1152,7 +1221,7 @@ def kernel_at(builds: dict, clock_hz: float, C: int, reps: int,
     ms = time_ms(lambda: approx_counts(*args), reps, warmup)
     ops = sass_ops_per_step(builds[("nfa_sliced", k, e)].so, "nfa_sliced",
                             (k, e))
-    bound_ms, bound_by = bound("nfa_sliced", ops, C, 1, clock_hz)
+    bound_ms, bound_by = bound(ops, C, clock_hz)
     not_under(f"nfa_sliced at C={C}", ms, bound_ms)
     return ms, bound_ms, bound_by
 

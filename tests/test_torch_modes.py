@@ -386,22 +386,23 @@ def test_word_launches_cover_the_words(n_words, plan):
     (2100000, 32, [(0, 2097120), (2097120, 2880)]),  # C = 2,100,000
     (2 * 2097120 + 9, 32, [(0, 2097120), (2097120, 2097120), (4194240, 9)]),
     (1050000, 16, [(0, 1048560), (1048560, 1440)]),  # pack 2, C = 2,100,000
-    (530000, 8, [(0, 524280), (524280, 5720)]),  # packed NFA, 530,000 words
+    (525000, 4, [(0, 262140), (262140, 262140), (524280, 720)]),  # pack 8
+    (131250, 2, [(0, 131070), (131070, 180)]),  # pack 16, C = 2,100,000
 ])
 def test_group_launches_cover_the_rows(rows, group, plan):
     """``word_launches`` with ``group`` rows a ``grid.y`` block, as the
-    Myers kernels take their 32 candidates (unpacked: 32 rows, pack 2: 16
-    words) and the packed NFA its 8 words: every launch holds at most
-    65,535 whole groups, and the launches tile the rows in order."""
+    kernels on a bit-sliced core take their 32 candidates (unpacked Myers:
+    32 rows; packed Myers and the packed NFA: 32 // pack words): every
+    launch holds at most 65,535 whole groups, and the launches tile the
+    rows in order."""
     from approx_counter_tpu_torch.kernels.bpm import (
         MAX_GRID_Y,
-        MYERS_CANDS,
-        NFA_PACKED_WORDS,
+        SLICED_CANDS,
         word_launches,
     )
 
-    assert (MYERS_CANDS, NFA_PACKED_WORDS) == (32, 8)
-    assert group in (MYERS_CANDS, MYERS_CANDS // 2, NFA_PACKED_WORDS)
+    assert SLICED_CANDS == 32
+    assert group in (SLICED_CANDS // p for p in (1, 2, 4, 8, 16))
     got = word_launches(rows, group)
     assert got == plan
     assert all(-(-n // group) <= MAX_GRID_Y for _, n in got)
@@ -412,27 +413,24 @@ def test_group_launches_cover_the_rows(rows, group, plan):
 
 @pytest.mark.parametrize("name,const", [("bpm_myers.cu", "kCands"),
                                         ("bpm_packed.cu", "kCands"),
-                                        ("nfa_packed.cu", "kWords")])
+                                        ("nfa_packed.cu", "kCands")])
 def test_group_size_matches_the_kernel_source(name, const):
     """The wrappers' group size is the rows a block of the kernel takes:
-    the 32 candidates of the bit-sliced core both Myers kernels include
-    (``kCands`` in ``myers_sliced.cuh``; packed Myers takes them as
-    kCands / PACK words), the packed NFA's ``kWords`` words."""
-    from approx_counter_tpu_torch.kernels.bpm import (
-        MYERS_CANDS,
-        NFA_PACKED_WORDS,
-    )
+    the 32 candidates of the bit-sliced core it includes (``kCands`` in
+    ``myers_sliced.cuh`` or ``nfa_sliced.cuh``); the packed kernels take
+    them as kCands / PACK words."""
+    from approx_counter_tpu_torch.kernels.bpm import SLICED_CANDS
 
     csrc = (Path(__file__).resolve().parents[1] / "approx_counter_tpu_torch"
             / "csrc")
     src = (csrc / name).read_text()
-    defs = src
-    if const == "kCands":
-        assert '#include "myers_sliced.cuh"' in src
-        defs = (csrc / "myers_sliced.cuh").read_text()
+    core, ns = (("nfa_sliced.cuh", "nfa") if name.startswith("nfa")
+                else ("myers_sliced.cuh", "myers"))
+    assert f'#include "{core}"' in src
+    defs = (csrc / core).read_text()
     n = int(re.search(rf"constexpr int {const} = (\d+);", defs).group(1))
-    assert n == (MYERS_CANDS if const == "kCands" else NFA_PACKED_WORDS)
-    if name == "bpm_packed.cu":
-        assert "kWords = myers::kCands / PACK;" in src
+    assert n == SLICED_CANDS
+    if name != "bpm_myers.cu":
+        assert f"kWords = {ns}::kCands / PACK;" in src
     assert "groups > 65535" in src  # the one-launch limit the plan serves
 

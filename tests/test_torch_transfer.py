@@ -254,6 +254,35 @@ def test_a_failed_pass_raises_from_finish(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("o_*"))
 
 
+def test_a_failed_run_waits_for_its_prefetched_pass(tmp_path, monkeypatch):
+    """A run whose start pass fails while its end pass is prefetched waits
+    for the end pass before it raises, and leaves no thread of its engine
+    running: no pass outlives ``run_pipeline``."""
+    import threading
+    import time
+
+    count, calls, returned = Engine._count, [], []
+
+    def failing_start(self, *args):
+        calls.append(threading.current_thread())
+        if len(calls) == 1:  # the start pass; the end pass is dispatched
+            raise RuntimeError("pass failed")
+        time.sleep(0.2)
+        out = count(self, *args)
+        returned.append(threading.current_thread())
+        return out
+
+    monkeypatch.setattr(Engine, "_count", failing_start)
+    fa = tmp_path / "r.fasta"
+    fa.write_text("".join(f">r{i}\n{'ACGTTGCA' * 8}\n" for i in range(6)))
+    with pytest.raises(RuntimeError, match="pass failed"):
+        run_pipeline(Params(input_file=str(fa), output=str(tmp_path / "o"),
+                            k=5, sl=20, sn=6, v=0, seed=1), device="cpu")
+    assert len(calls) == 2 and returned == calls[1:]
+    assert not calls[0].is_alive()  # the engine's worker thread
+    assert not list(tmp_path.glob("o_*"))
+
+
 def test_count_one_end_counts_on_the_callers_thread(monkeypatch):
     """``count_one_end`` (the multihost step's pass) counts on the calling
     thread, where ``start_pass`` counts on the worker; both give the same."""
@@ -263,7 +292,8 @@ def test_count_one_end_counts_on_the_callers_thread(monkeypatch):
     count, threads = Engine._count, []
 
     def spy(self, *args):
-        threads.append(threading.current_thread())
+        if self is engine:  # no other engine's pass enters the record
+            threads.append(threading.current_thread())
         return count(self, *args)
 
     monkeypatch.setattr(Engine, "_count", spy)
