@@ -98,9 +98,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(extension)")
     p.add_argument("--device-pool", choices=("auto", "on", "off"),
                    default="auto",
-                   help="device-resident window pool for multi-pass runs "
-                        "(extension; accepted for compatibility with the "
-                        "JAX package and inert in the PyTorch port)")
+                   help="device-resident window pool for multi-pass runs: "
+                        "ship every eligible read's windows once, gather "
+                        "each pass's batch on device from a small index "
+                        "vector (extension; auto = when the pool bytes "
+                        "undercut the per-pass planes; in-memory mode "
+                        "only -- inert under --stream/--from-exact)")
     return p
 
 

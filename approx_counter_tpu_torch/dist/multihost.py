@@ -11,9 +11,11 @@ program:
   3. each rank streams its shard through the distributed bottom-k sampler
      (``dist/sampling.py``): a uniform min(sn, N_eligible)-subset of the
      union of eligible reads, whatever the shard sizes;
-  4. ``dist/mesh.py:full_step`` counts each end: the exact stage over every
-     rank's windows, the approximate counts over this rank's with an
-     all-reduce; the selections and rankings are the same on every rank;
+  4. ``dist/mesh.py:full_step`` counts each end: each rank counts its own
+     windows exactly, each code is summed and selected on its owner rank
+     and the selections gathered; the approximate counts over this rank's
+     windows with an all-reduce; the selections and rankings are the same
+     on every rank;
   5. rank 0 logs, warns and exports, with the single-device pipeline's log
      lines, warnings, ``--compat-quirks`` and ``--from-exact``.
 
@@ -36,6 +38,7 @@ import torch
 
 from approx_counter_tpu_torch.dist.mesh import (
     approx_counts_sharded,
+    exact_count_select_sharded,
     full_step,
     process_count,
     process_index,
@@ -92,7 +95,8 @@ def run_pipeline_multihost(prm, log: Log | None = None, *, device) -> int:
     if v > 0 and prm.nb_of_runs > 1:
         print(f"\nA total of {prm.nb_of_runs} runs will be performed.")
 
-    engine = Engine(prm, device, counts=approx_counts_sharded)
+    engine = Engine(prm, device, counts=approx_counts_sharded,
+                    exact=exact_count_select_sharded)
     my_paths = shard_paths(prm.input_file.split(","), pi, pc)
 
     # priority streams must differ per rank (independent uniform keys)

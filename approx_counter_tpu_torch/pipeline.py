@@ -272,9 +272,11 @@ class _PendingPass:
 class Engine:
     """Device-side counting for one parameter set on one device.
 
-    ``counts`` computes the approximate counts (``approx_counts``'s
-    arguments and result); the multihost orchestrator passes
-    ``dist/mesh.py:approx_counts_sharded``, which sums every rank's.
+    ``exact`` runs the exact stage and ``counts`` computes the
+    approximate counts (``exact_count_select``'s and ``approx_counts``'s
+    arguments and results); the multihost orchestrator passes
+    ``dist/mesh.py:exact_count_select_sharded`` and
+    ``approx_counts_sharded``, which count every rank's windows.
 
     A pass is dispatched (``start_pass``, ``start_pass_pool``) and then
     finished: dispatch packs the batch on the host and ships it (sparse-N
@@ -283,10 +285,12 @@ class Engine:
     the worker thread, on a stream of its own, while the caller prepares
     the next one.  ``count_one_end`` counts on the caller's thread."""
 
-    def __init__(self, prm: Params, device, counts=approx_counts):
+    def __init__(self, prm: Params, device, counts=approx_counts,
+                 exact=exact_count_select):
         self.prm = prm
         self.device = torch.device(device)
         self.counts = counts
+        self.exact = exact
         self.lc_sum_thr = lc_sum_threshold(prm.adjusted_lc, prm.k)
         codes = (parse_kmer_list(prm.forbid_kmer) if prm.forbid_kmer
                  else np.empty(0, np.uint64))
@@ -390,29 +394,21 @@ class Engine:
         batch = self.device_windows(windows, n_valid)
         return _PendingPass(self, lambda: self._count(*batch), batch)
 
-    def count_one_end(self, windows: np.ndarray, n_valid: int,
-                      exact_batch=None):
+    def count_one_end(self, windows: np.ndarray, n_valid: int):
         """One pass over a sampled batch (uint8 ``[n, m]``, rows past
         ``n_valid`` are padding).  Returns ``(exact_sel, approx_sel,
         stats)``: (codes, counts) uint64 numpy pairs in CompareCount order
         and the counters the log lines print.  In solid mode the exact
         selection holds every solid k-mer and the approximate one its first
-        ``limit``.  ``exact_batch``: a ``(windows, n_valid)`` batch that the
-        exact stage counts instead of this one (the multihost step counts
-        every rank's windows and scores its own)."""
-        batch = self.device_windows(windows, n_valid)
-        exact = (self.device_windows(*exact_batch)
-                 if exact_batch is not None else batch)
-        return self._count(*batch, exact)
+        ``limit``."""
+        return self._count(*self.device_windows(windows, n_valid))
 
-    def _count(self, windows_t, row_mask, exact=None):
-        """The pass on device-resident windows: exact stage (on ``exact``,
-        a ``(windows_t, row_mask)`` pair, when given), approximate counts,
-        re-rank, fetch."""
+    def _count(self, windows_t, row_mask):
+        """The pass on device-resident windows: exact stage, approximate
+        counts, re-rank, fetch."""
         prm = self.prm
-        ex_t, ex_mask = exact if exact is not None else (windows_t, row_mask)
-        ex = exact_count_select(ex_t, ex_mask, prm.k, self.lc_sum_thr,
-                                self.forbidden, prm.limit, prm.solid_km)
+        ex = self.exact(windows_t, row_mask, prm.k, self.lc_sum_thr,
+                        self.forbidden, prm.limit, prm.solid_km)
         stats = dict(n_unique=ex["n_unique"], n_keep=ex["n_keep"],
                      had_n=ex["had_n"])
         return (_host(ex["sel_codes"], ex["sel_counts"]),

@@ -88,9 +88,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
  13. Multihost: the FASTA dealt round-robin into two shard files, then at
      the default parameters (a) --multihost through the CLI at one rank,
      cold and warm, exports byte-equal to ``run_pipeline_multihost`` on
-     the CPU; (b) two ranks sharing the card under torchrun (gloo), cold
-     and warm in one process per rank, exports byte-equal to the same two
-     ranks on the CPU; per-end walls from rank 0's log.  (c) At -sn 60000
+     the CPU; (b) two ranks sharing the card under torchrun (gloo), cold,
+     warm and under --profile in one process per rank, each rank's exact
+     stage sharded by owner rank on the card, exports byte-equal across
+     the three and to the same two ranks on the CPU; per-end walls from
+     rank 0's log, each rank's per-end split from its trace (the four
+     exact-stage ranges, the time before and after them, the collectives,
+     the kernel, the device-busy time), the bytes each rank sends per end,
+     the owner balance and the collectives' transport.  (c) At -sn 60000
      (every read eligible) one rank, two ranks (``torchrun -m
      approx_counter_tpu_torch --profile``: one trace per rank, two
      nfa_sliced kernels in each) and --stream on the unsplit file export
@@ -120,6 +125,12 @@ before them gives them path by path.
 With ``--ranks N`` the script runs only phase 13's check of N ranks under
 torchrun against the same N ranks on the CPU, rank r on card r (NCCL for
 CUDA tensors when every rank has a card), on N shards of the FASTA.
+
+With ``--split N`` it runs only phase 13 (b)'s measurement at N ranks on
+min(N, cards) cards over N shards, without the CPU ranks, and one more
+run at -sk 1 for its walls and peak device memory.  It reads the
+package of the checkout it sits in, one from before the sharded exact
+stage too: copy it into two checkouts and run them in turns (a b b a).
 
 With ``--walls R`` it runs only the dispatch path's walls: R rounds of the
 default run and of -mr 3 -v 2 with --device-pool off and auto, each run's
@@ -1538,29 +1549,62 @@ def read_trace(path: str):
     return events, sliced, gpu, shares, overlap
 
 
-# A rank of the two-rank run on the card, started by torchrun: the CLI's
+# A rank of a multi-rank run on the card, started by torchrun: the CLI's
 # --multihost branch (``__main__.main``: join the group, ``run`` on the
-# rank's card, leave) with the run made twice, cold then warm, in one
-# process; ``@RUN@`` in the arguments becomes the run's label.  Rank 0
-# marks each run in its stdout; every rank reports its launches.
+# rank's card, leave) with the runs of the JSON list in argv[1], one after
+# the other in one process: [label, extra CLI arguments]; ``@RUN@`` in the
+# arguments becomes the run's label.  Rank 0 marks each run in its stdout;
+# every rank reports, per run, its launches, its peak device memory and its
+# traffic: the bytes of
+# each window batch it handed to ``gather_windows``'s all-gather (none
+# since the exact stage is sharded), the sharded exact stage's traffic
+# list (where the package has it, so the script also measures a checkout
+# from before the sharded exact stage) and the process group's backend.
 MH_RANK = r"""
-import sys
+import json, sys
 import torch
 from approx_counter_tpu_torch.__main__ import run
 from approx_counter_tpu_torch.config.cli import resolve_params
 from approx_counter_tpu_torch.dist import mesh
 from approx_counter_tpu_torch.kernels import bpm
+gathered = []
+allgather_rows = mesh._allgather_rows
+
+
+def counted(local):
+    if local.ndim == 2:
+        gathered.append(local.nbytes)
+    return allgather_rows(local)
+
+
+mesh._allgather_rows = counted
+sharded = getattr(mesh, "exact_count_select_sharded", None)
 mesh.initialize()
 rank, rc = mesh.process_index(), 0
 try:
-    for label in ("cold", "warm"):
-        prm = resolve_params([a.replace("@RUN@", label) for a in sys.argv[1:]])
+    for label, extra in json.loads(sys.argv[1]):
+        prm = resolve_params([a.replace("@RUN@", label)
+                              for a in sys.argv[2:] + extra])
         if rank == 0:
             print(f"@@ {label}", flush=True)
         bpm.approx_counts.launches = 0
+        gathered.clear()
+        if sharded is not None:
+            sharded.traffic.clear()
+        torch.cuda.reset_peak_memory_stats(mesh.rank_device())
         rc = rc or run(prm, mesh.rank_device())
-        print(f"[rank {rank}] {label} nfa_sliced launches "
-              f"{bpm.approx_counts.launches}", file=sys.stderr, flush=True)
+        traffic = json.dumps(dict(
+            window_gather=list(gathered),
+            exact=None if sharded is None else list(sharded.traffic),
+            backend=torch.distributed.get_backend()))
+        peak = torch.cuda.max_memory_allocated(mesh.rank_device())
+        # one write per report: the ranks share torchrun's stderr
+        sys.stderr.write(
+            f"[rank {rank}] {label} nfa_sliced launches "
+            f"{bpm.approx_counts.launches}\n[rank {rank}] {label} peak "
+            f"device memory {peak} B\n[rank {rank}] {label} traffic "
+            f"{traffic}\n")
+        sys.stderr.flush()
 finally:
     torch.distributed.destroy_process_group()
 sys.exit(rc)
@@ -1669,11 +1713,101 @@ def multihost_walls(stdout: str) -> str:
             f"{per_end['start']:.4f} s, end end {per_end['end']:.4f} s")
 
 
-def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
-    """``n`` ranks under torchrun, rank r on cuda:{r % cards}, cold then
-    warm, against the same ``n`` ranks on the CPU (gloo): exports
-    byte-equal.  Returns the warm run's nfa_sliced launches over all
-    ranks."""
+# the sharded exact stage's profiler ranges, in the order they run
+EXACT_RANGES = ("exact local", "exact exchange", "exact owner",
+                "exact gather")
+
+
+def pass_split(path: str) -> dict:
+    """Per end pass of a rank's ``--profile`` trace, in ms: the pass's
+    wall; the host time of each exact-stage range and, where they ran,
+    the time before the first (the upload) and after the last (the
+    approximate counts with their all-reduce, the re-rank and the export);
+    the host time in each collective op (``c10d::``) by name, the
+    ``nfa_sliced`` kernel's device time and the device-busy time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    on_card = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    out = {}
+    for p in ranges:
+        if p["name"] not in ("start pass", "end pass"):
+            continue
+        lo, hi = p["ts"], p["ts"] + p["dur"]
+
+        def inside(e):
+            return lo <= e["ts"] and e["ts"] + e.get("dur", 0) <= hi
+
+        row = {"wall": p["dur"] / 1e3}
+        exact = [e for e in ranges if e["name"] in EXACT_RANGES
+                 and inside(e)]
+        for name in EXACT_RANGES:
+            row[name] = sum(e["dur"] for e in exact
+                            if e["name"] == name) / 1e3
+        if exact:
+            row["before exact"] = (min(e["ts"] for e in exact) - lo) / 1e3
+            row["after exact"] = (hi - max(e["ts"] + e["dur"]
+                                           for e in exact)) / 1e3
+        comms: dict = {}
+        for e in events:
+            if (e.get("cat") == "cpu_op" and inside(e)
+                    and e.get("name", "").startswith("c10d::")):
+                comms[e["name"]] = comms.get(e["name"], 0) + e["dur"] / 1e3
+        row["collectives"] = {k: round(v, 4) for k, v in sorted(comms.items())}
+        row["nfa_sliced"] = sum(
+            e["dur"] for e in events if e.get("cat") == "kernel"
+            and "nfa_sliced" in e.get("name", "") and inside(e)) / 1e3
+        row["device busy"] = busy_ms(on_card, lo, hi)
+        out[p["name"].split()[0]] = {
+            k: (round(v, 4) if isinstance(v, float) else v)
+            for k, v in row.items()}
+    return out
+
+
+def traffic_lines(n: int, traffic: dict) -> list[str]:
+    """Per end, the bytes each rank sends and the owner balance, from the
+    ranks' traffic reports of one run (``{rank: report}``).  The window
+    all-gather sends the rank's padded uint8 batch to every other rank;
+    the exchange sends 16 B (code and count) per code owned by another
+    rank and the R split sizes; the gather sends the padded selection, 16
+    B an entry, and its length to every other rank.  The balance is the
+    most unique codes a rank owns over the mean."""
+    lines = []
+    for end in range(2):
+        sent = {}
+        for r in range(n):
+            rep = traffic[r]
+            b = {}
+            if rep["window_gather"]:
+                b["window all-gather"] = (rep["window_gather"][end]
+                                          + 8) * (n - 1)
+            if rep["exact"]:
+                ex = rep["exact"][end]
+                b["exchange"] = 16 * ex["sent"] + 8 * n
+                b["gather"] = (16 * ex["gathered"] // n + 8) * (n - 1)
+            sent[r] = b
+        line = (f"{('start', 'end')[end]} end: bytes sent per rank "
+                f"{json.dumps(sent)}")
+        exact = [traffic[r]["exact"] for r in range(n)]
+        if all(exact):
+            owned = [e[end]["owned"] for e in exact]
+            local = [e[end]["local"] for e in exact]
+            line += (f"; unique codes counted per rank {local}, owned "
+                     f"{owned}, owner balance (max / mean) "
+                     f"{max(owned) / (sum(owned) / n):.4f}")
+        lines.append(line)
+    return lines
+
+
+def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
+                      extra: tuple = ()) -> int:
+    """``n`` ranks under torchrun, rank r on cuda:{r % cards}: the run
+    cold, warm and once more under ``--profile``, then the ``extra`` runs
+    (``[label, CLI arguments]``).  Logs each run's walls from rank 0's log
+    and each rank's peak device memory, each rank's per-end split from its
+    trace, the bytes each rank sends, the owner balance and the transport.
+    Returns the warm run's nfa_sliced launches over all ranks."""
     import torch
 
     cards = torch.cuda.device_count()
@@ -1681,21 +1815,53 @@ def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
     script = f"{out_dir}/mh_rank.py"
     with open(script, "w") as f:
         f.write(MH_RANK)
-    stem = f"mh{n}"
+    prof = f"{out_dir}/{stem}_trace"
+    runs = [["cold", []], ["warm", []], ["profile", ["--profile", prof]],
+            *extra]
     (rc, stdout, stderr), = run_group(
-        [torchrun(n, script, *multihost_argv(shards, out_dir,
-                                             f"{stem}_@RUN@"))], 600)
+        [torchrun(n, script, json.dumps(runs),
+                  *multihost_argv(shards, out_dir, f"{stem}_@RUN@"))], 600)
     got = {(int(r), run): int(c) for r, run, c in re.findall(
-        r"\[rank (\d+)\] (cold|warm) nfa_sliced launches (\d+)", stderr)}
-    if rc != 0 or sorted(got.values()) != [2] * (2 * n):
+        r"\[rank (\d+)\] (\w+) nfa_sliced launches (\d+)", stderr)}
+    timed = sorted(c for (_, run), c in got.items()
+                   if run in ("cold", "warm", "profile"))
+    if rc != 0 or timed != [2] * (3 * n):
         raise AssertionError(f"torchrun, {n} ranks: rc {rc}, launches {got}:"
                              f"\n{stdout[-3000:]}\n{stderr[-3000:]}")
-    runs = dict(re.findall(r"@@ (cold|warm)\n(.*?)(?=@@ |\Z)", stdout, re.S))
-    for label in ("cold", "warm"):
+    decode = json.JSONDecoder().raw_decode
+    traffic = {(int(r), run): decode(t)[0] for r, run, t in re.findall(
+        r"\[rank (\d+)\] (\w+) traffic (\{.*)", stderr)}
+    peak = {(int(r), run): int(b) for r, run, b in re.findall(
+        r"\[rank (\d+)\] (\w+) peak device memory (\d+) B", stderr)}
+    logs = dict(re.findall(r"@@ (\w+)\n(.*?)(?=@@ |\Z)", stdout, re.S))
+    for label, _ in runs:
         log(f"[multihost] {n} ranks on {min(n, cards)} card(s) {label} "
             f"(torchrun, {backend} for CUDA tensors): rc 0, launches per rank "
-            f"{[got[(r, label)] for r in range(n)]}, "
-            f"{multihost_walls(runs[label])}")
+            f"{[got[(r, label)] for r in range(n)]}, peak device memory per "
+            f"rank {[peak[(r, label)] for r in range(n)]} B, "
+            f"{multihost_walls(logs[label])}")
+    groups = {traffic[(r, "warm")]["backend"] for r in range(n)}
+    log(f"[multihost] {n} ranks: process group backend {sorted(groups)}, "
+        f"CUDA tensors over {backend}"
+        + (" (staged through the host by gloo)" if backend == "gloo" else
+           " (on the cards)"))
+    for line in traffic_lines(n, {r: traffic[(r, "warm")] for r in range(n)}):
+        log(f"[multihost] {n} ranks, warm, {line}")
+    for r in range(n):
+        for end, row in pass_split(f"{prof}/trace.rank{r}.json").items():
+            log(f"[multihost] {n} ranks, profiled run, rank {r}, {end} pass "
+                f"(ms): {json.dumps(row)}")
+    same_exports(f"{out_dir}/{stem}_cold", f"{out_dir}/{stem}_warm")
+    same_exports(f"{out_dir}/{stem}_profile", f"{out_dir}/{stem}_warm")
+    return sum(got[(r, "warm")] for r in range(n))
+
+
+def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
+    """``multihost_measure`` at ``n`` ranks, against the same ``n`` ranks
+    on the CPU (gloo): exports byte-equal.  Returns the warm run's
+    nfa_sliced launches over all ranks."""
+    stem = f"mh{n}"
+    launches = multihost_measure(n, shards, out_dir, stem)
     port = free_port()
     t0 = time.perf_counter()
     results = run_group([[sys.executable, "-c", MH_CPU_RANK, REPO, str(pid),
@@ -1707,10 +1873,9 @@ def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
         if rc != 0:
             raise AssertionError(f"{n} CPU ranks: rc {rc}:\n{se[-3000:]}")
     same_exports(f"{out_dir}/{stem}_warm", f"{out_dir}/{stem}_cpu")
-    same_exports(f"{out_dir}/{stem}_cold", f"{out_dir}/{stem}_warm")
     log(f"[multihost] {n} ranks: exports == the same {n} ranks on the CPU "
         f"(gloo; {time.perf_counter() - t0:.1f} s), 4 files")
-    return sum(got[(r, "warm")] for r in range(n))
+    return launches
 
 
 def phase_multihost(fasta: str, out_dir: str) -> dict:
@@ -2052,6 +2217,24 @@ def main_ranks(n: int) -> int:
     return 0
 
 
+def main_split(n: int) -> int:
+    """``--split N``: the default multihost run at N ranks on
+    min(N, cards) cards over N shards, measured as phase 13 (b) measures
+    it, with no CPU comparison; a sha256 of the warm and the -sk 1 run's
+    exports, to compare two checkouts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "reads.fasta")
+        write_fasta(fasta, 50000, seed=5)
+        launches = multihost_measure(
+            n, ",".join(shard_fasta(fasta, tmp, n)), tmp, f"split{n}",
+            (["sk1", ["-sk", "1"]],))
+        digest = {label: exports_digest(f"{tmp}/split{n}_{label}")
+                  for label in ("warm", "sk1")}
+    log(f"[multihost] --split {n}: nfa_sliced launches {launches}, exports "
+        f"sha256 {json.dumps(digest)}")
+    return 0
+
+
 def ok_line() -> str:
     import torch
 
@@ -2072,6 +2255,8 @@ def main(argv: list[str] | None = None) -> int:
                          "one card each")
     ap.add_argument("--walls", type=int, default=0,
                     help="run only R rounds of the dispatch path's walls")
+    ap.add_argument("--split", type=int, default=0,
+                    help="run only the multihost measurement at N ranks")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2082,7 +2267,10 @@ def main(argv: list[str] | None = None) -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} card(s)")
-    if args.ranks:
+    mode = ((main_ranks, args.ranks) if args.ranks else
+            (main_walls, args.walls) if args.walls else
+            (main_split, args.split) if args.split else None)
+    if mode:
         from approx_counter_tpu_torch.kernels._build import (
             host_build,
             nfa_sliced_build,
@@ -2090,18 +2278,7 @@ def main(argv: list[str] | None = None) -> int:
 
         nfa_sliced_build(16, MAIN["maxerr"])
         host_build("fastx_parser")
-        main_ranks(args.ranks)
-        print(ok_line())
-        return 0
-    if args.walls:
-        from approx_counter_tpu_torch.kernels._build import (
-            host_build,
-            nfa_sliced_build,
-        )
-
-        nfa_sliced_build(16, MAIN["maxerr"])
-        host_build("fastx_parser")
-        main_walls(args.walls)
+        mode[0](mode[1])
         print(ok_line())
         return 0
     clock_hz = max_sm_clock_hz()

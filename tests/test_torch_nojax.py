@@ -48,6 +48,7 @@ SCRIPT = textwrap.dedent(r"""
     from approx_counter_tpu_torch.count import exact_count_select
     from approx_counter_tpu_torch.count.approx import approx_count_rank
     from approx_counter_tpu_torch.dist import (approx_counts_sharded,
+                                               exact_count_select_sharded,
                                                gather_windows, initialize)
     from approx_counter_tpu_torch.io import print_counters, read_fastx
     from approx_counter_tpu_torch.kernels import (approx_counts, approx_counts_ref,
