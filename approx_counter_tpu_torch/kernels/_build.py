@@ -3,7 +3,8 @@
 Each kernel is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The FASTA/FASTQ parser ``csrc/fastx_parser.cpp`` is host C++,
-compiled the same way by ``g++`` (``host_build``).  The two level-NFA
+compiled the same way by ``g++`` (``host_build``), as is the bench's
+C++ baseline, an executable (``host_program``).  The two level-NFA
 kernels are built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``,
 the two bit-sliced Myers kernels once per k with ``-DKMER``; the stage
 network takes its sizes (the rows and stages) as arguments and is built
@@ -55,9 +56,10 @@ SIGNATURES = {
 
 
 class KernelBuild:
-    """One built library: the ctypes handle, its path, the compiler's
-    output (for a kernel, ptxas's register and spill report) and the
-    build's wall seconds (0.0 when reused)."""
+    """One built library or program: the ctypes handle (None for a
+    program), its path, the compiler's output (for a kernel, ptxas's
+    register and spill report) and the build's wall seconds (0.0 when
+    reused)."""
 
     def __init__(self, lib: ctypes.CDLL, so: Path, log: str, seconds: float):
         self.lib = lib
@@ -99,23 +101,26 @@ def _toolchain(cc: str) -> bytes:
                       *platform.libc_ver()]).encode()
 
 
-def _compile(compiler, flags: tuple[str, ...], src: Path,
-             stem: str) -> tuple[Path, str, float]:
+def _compile(compiler, flags: tuple[str, ...], src: Path, stem: str,
+             suffix: str = ".so",
+             salt: bytes = b"") -> tuple[Path, str, float]:
     """Build ``src`` with ``compiler()`` and ``flags`` into ``BUILD_DIR``,
-    or reuse the library built from the same inputs by the same toolchain;
-    returns (library, the compiler's output, build seconds)."""
+    or reuse the library built from the same inputs (``salt`` among them)
+    by the same toolchain; returns (library, the compiler's output, build
+    seconds)."""
     cc = compiler()
     headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
     digest = hashlib.sha256(
         src.read_bytes() + headers + " ".join(flags).encode() + _toolchain(cc)
+        + salt
     ).hexdigest()[:16]
-    so = BUILD_DIR / f"{stem}_{digest}.so"
+    so = BUILD_DIR / f"{stem}_{digest}{suffix}"
     log_path = so.with_suffix(".log")
     if so.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return so, log, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=suffix, dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
     try:
@@ -126,6 +131,7 @@ def _compile(compiler, flags: tuple[str, ...], src: Path,
                 f"{Path(cc).name} failed for {src.name} {' '.join(flags)}:\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        os.chmod(tmp, 0o755)  # mkstemp's 0600 would stop a program
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
@@ -172,6 +178,29 @@ def host_build(name: str) -> KernelBuild:
         return KernelBuild(ctypes.CDLL(str(so)), so, log, seconds)
 
     return _cached((name, "host"), make)
+
+
+def _cpu_model() -> bytes:
+    """The host CPU's model name, for a build with ``-march=native``."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((line for line in f if line.startswith(b"model name")),
+                        b"")
+    except OSError:
+        return platform.processor().encode()
+
+
+def host_program(src: Path, flags: tuple[str, ...]) -> Path:
+    """The executable built by ``g++`` from the C++ source ``src`` with
+    ``flags`` into ``BUILD_DIR``, on first use; the host CPU's model is
+    part of its hash, since ``-march=native`` ties it to that CPU.  A
+    missing ``g++`` or a failed build raises."""
+    def make():
+        exe, log, seconds = _compile(_gxx, flags, src, src.stem, suffix="",
+                                     salt=_cpu_model())
+        return KernelBuild(None, exe, log, seconds)
+
+    return _cached((str(src), flags), make).so
 
 
 def _nfa_build(name: str, k: int, maxerr: int) -> KernelBuild:

@@ -14,7 +14,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      m=101, k=16, maxerr=2, with N and pad symbols and invalid tail
      windows) and small shapes at k in {2, 3, 16, 31, 32} x maxerr 0-3.
      Both times at the main shape, from CUDA events, warm-up excluded
-     (20 calls for the kernel, 2 for the plain version).
+     (20 calls for the kernel, 2 for the plain version); the kernel's is
+     the mean of the first of 3 trials of 20 calls (``bench.trial_times``,
+     as in phase 3), the least and each trial's host issue time logged.
   3. The three alternate kernels (unpacked Myers, packed Myers, packed
      NFA) at the default-run shape, k=16 (and pack 4 at k=8; the packed
      NFA also at pack 1): each equal to its plain version, to the plain
@@ -107,6 +109,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      one end batch's upload (native gather against a strided view; the
      sparse-N, a forced dense and the raw uint8 upload, each byte-equal,
      with their ms).
+ 15. Bench (run after phase 3): ``python -m approx_counter_tpu_torch.bench``
+     in a child process, after the sliced kernel on the bench's first
+     window buffer (C 512, W 40,960: a full last candidate word and a full
+     last 256-window block) equals both plain versions exactly: rc 0, one
+     JSON line on stdout with the keys metric, value, unit and
+     vs_baseline, a non-null vs_baseline, and a value within 0.8-1.25x of
+     phase 2's kernel rate (C x W over its least trial's ms, timed as the
+     bench times, scaled from W 40,000 to the bench's 40,960); its JSON
+     line and its ``[bench]`` lines are printed again here.
 Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and the time of the busiest limit of its text loop's SASS
 (from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
@@ -115,12 +126,15 @@ ALU pipe's instructions over 64 lanes per SM, the FMA-heavy pipe's over
 carries 32 candidates in every one of them.  The four compute one function, so
 the least of their bounds at a k is the function's bound there.  The
 stage network's counts one min or max per element and stage on the ALU
-pipe.  A kernel that beats its bound fails its phase: the model is wrong
-or work was elided.
+pipe.  A kernel that beats its bound fails its phase (a count kernel at
+its main shape in its fastest trial): the model is wrong or work was
+elided.
 The last two lines of stdout are one JSON object on the kernels and one
-``{"ok": true, "device": ...}`` object.  A kernel's ``launches`` there sum
+``{"ok": true, "device": ...}`` object; the line before them repeats the
+card's name and power limit.  A kernel's ``launches`` there sum
 its paths' counts (each path counted from 0); the ``[launches]`` line
-before them gives them path by path.
+before them gives them path by path.  A count kernel's ``ms`` is its first
+trial's mean and ``best_ms`` the least of its three.
 
 With ``--ranks N`` the script runs only phase 13's check of N ranks under
 torchrun against the same N ranks on the CPU, rank r on card r (NCCL for
@@ -415,22 +429,40 @@ def random_case(rng, C: int, W: int, m: int, k: int, n_invalid: int):
 # warm-up calls before a count kernel's main-shape timing (phases 2 and 3):
 # two calls of 0.7 ms do not settle the card for the run's first timing
 KERNEL_WARMUP = 20
+# trials of 20 calls at a count kernel's main shape (phases 2 and 3): the
+# first trial's mean is the kernel's ms, the least is held to the bench's
+# (its least of 3), and each trial's host issue time says whether the host
+# held the card back
+KERNEL_TRIALS = 3
+
+
+def trials_ms(fn, reps: int, warmup: int = 2,
+              trials: int = 1) -> list[tuple[float, float]]:
+    """(ms per call by CUDA events, host ms per call to issue them) of each
+    of ``trials`` trials of ``reps`` calls after ``warmup`` calls: the
+    bench's own timing, ``bench.trial_times``."""
+    import torch
+
+    from approx_counter_tpu_torch.bench import trial_times
+
+    return [(dt * 1e3, issue * 1e3) for dt, issue in trial_times(
+        lambda i: fn(), reps, torch.device("cuda"), warmup, trials)]
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    import torch
+    """ms per call: the mean over ``reps`` calls after ``warmup`` calls
+    (one trial of ``trials_ms``)."""
+    return trials_ms(fn, reps, warmup)[0][0]
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+
+def kernel_ms(fn) -> tuple[float, float, str]:
+    """A count kernel at its main shape: (the first trial's mean, the least
+    mean, the trials as text) over ``KERNEL_TRIALS`` trials of 20 calls
+    after ``KERNEL_WARMUP`` calls."""
+    times = trials_ms(fn, 20, KERNEL_WARMUP, KERNEL_TRIALS)
+    text = (f"trials {' / '.join(f'{t:.4f}' for t, _ in times)} ms, host "
+            f"issue {' / '.join(f'{i:.4f}' for _, i in times)} ms a call")
+    return times[0][0], min(t for t, _ in times), text
 
 
 def launch_counts() -> dict:
@@ -512,7 +544,7 @@ def phase_kernel(builds: dict, clock_hz: float) -> dict:
         max_err = max(max_err, exact_diff(
             got, plain(*args), f"nfa_sliced != {plain.__name__} at the main "
             f"shape"))
-    ms = time_ms(lambda: approx_counts(*args), 20, KERNEL_WARMUP)
+    ms, best_ms, trials = kernel_ms(lambda: approx_counts(*args))
     plain_ms = time_ms(lambda: approx_counts_ref(*args), 3)
     ops = sass_ops_per_step(builds[("nfa_sliced", k, e)].so, "nfa_sliced",
                             (k, e))
@@ -520,12 +552,83 @@ def phase_kernel(builds: dict, clock_hz: float) -> dict:
     log(f"[kernel] main shape C=500 W=40000 m=101 k=16 maxerr=2: "
         f"kernel == plain == approx_counts_nfa_sliced_ref exactly; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, mean of 20 / 3 "
-        f"calls after {KERNEL_WARMUP} / 2 warm-up); bound "
+        f"calls after {KERNEL_WARMUP} / 2 warm-up; kernel {trials}, least "
+        f"{best_ms:.4f} ms); bound "
         f"{bound_ms:.4f} ms ({bound_by}; SASS ops per step and 32-candidate "
         f"word: {ops_text(ops)})")
-    not_under("nfa_sliced at the main shape", ms, bound_ms)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    not_under("nfa_sliced at the main shape", best_ms, bound_ms)
+    return dict(max_abs_err=max_err, ms=ms, best_ms=best_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# the bench's kernel shape (bench.py:29) and its JSON line's keys
+BENCH_C, BENCH_W = 512, 40960
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def phase_bench(sliced: dict) -> int:
+    """Phase 15: first the sliced kernel on the bench's first window buffer
+    (its seeded draws, a full last word of candidates and a full last
+    256-window block) against both plain versions, exactly; then the port's
+    bench in a child process.  ``sliced`` is phase 2's entry; its
+    ``max_abs_err`` takes the comparison's.  Returns the bench's
+    sliced-kernel launches (its own count, from 0 in the child)."""
+    import torch
+
+    from approx_counter_tpu_torch import bench
+    from approx_counter_tpu_torch.kernels.bpm import (
+        approx_counts,
+        approx_counts_nfa_sliced_ref,
+        approx_counts_ref,
+    )
+
+    k, e = 16, bench.MAXERR
+    peq, (wts,), wv = bench.device_inputs(*bench.kernel_inputs(
+        np.random.default_rng(12345), BENCH_C, BENCH_W, MAIN["m"], k, 1), k,
+        torch.device("cuda"))
+    args = (peq, wts, wv, k, e)
+    got = approx_counts(*args)
+    for plain in (approx_counts_ref, approx_counts_nfa_sliced_ref):
+        sliced["max_abs_err"] = max(sliced["max_abs_err"], exact_diff(
+            got, plain(*args), f"nfa_sliced != {plain.__name__} at the "
+            f"bench's shape"))
+    log(f"[bench] C={BENCH_C} W={BENCH_W} m={MAIN['m']} k={k} maxerr={e} "
+        f"(the bench's first buffer): kernel == plain == "
+        f"approx_counts_nfa_sliced_ref exactly")
+    del peq, wts, wv, args, got
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "approx_counter_tpu_torch.bench"], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(line)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench: rc {proc.returncode}, {len(lines)} "
+                             f"stdout lines\n{proc.stdout[-2000:]}")
+    log(f"[bench] stdout: {lines[0]}")
+    res = json.loads(lines[0])
+    if set(res) != BENCH_KEYS or res["vs_baseline"] is None:
+        raise AssertionError(f"bench: keys {sorted(res)}, vs_baseline "
+                             f"{res.get('vs_baseline')}")
+    # phase 2's pairs/s: C x W over its ms, the ms scaled to the bench's W;
+    # held with its least trial, timed as the bench times (least of 3)
+    def rate(ms):
+        return BENCH_C * BENCH_W / (ms / 1e3 * BENCH_W / MAIN["W"])
+
+    ratio = res["value"] / rate(sliced["best_ms"])
+    log(f"[bench] value {res['value']} pairs/s is {ratio:.4f}x phase 2's "
+        f"{rate(sliced['best_ms']):.1f} (its least trial, "
+        f"{sliced['best_ms']:.4f} ms at C={MAIN['C']} W={MAIN['W']}, scaled "
+        f"to W={BENCH_W}) and {res['value'] / rate(sliced['ms']):.4f}x its "
+        f"first trial's ({sliced['ms']:.4f} ms); child wall {wall:.2f} s")
+    if not 0.8 <= ratio <= 1.25:
+        raise AssertionError(f"bench value {res['value']}: {ratio:.4f}x "
+                             f"phase 2's rate, outside 0.8-1.25")
+    found = re.search(r"^\[bench\] launches: (.*)$", proc.stderr, re.M)
+    return json.loads(found.group(1))["nfa_sliced"]
 
 
 # (kernel, k, pack) at the main shape; the first of each kernel is the one
@@ -601,7 +704,7 @@ def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
         got = fn()
         err = max(exact_diff(got, p(*args), f"{what} != {p.__name__}")
                   for p in plains)
-        ms = time_ms(fn, 20, KERNEL_WARMUP)
+        ms, best_ms, trials = kernel_ms(fn)
         plain_ms = time_ms(lambda: plains[0](*args), 3)
         key, targs = sass_targs(kernel, k, pack, e)
         ops = sass_ops_per_step(builds[key].so, kernel, targs)
@@ -609,9 +712,10 @@ def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
         own[k][f"{kernel} pack {pack}"] = bound_ms, bound_by
         log(f"[alternates] {what} maxerr={e} at C=500 W=40000 m=101: == "
             f"{', '.join(p.__name__ for p in plains)} exactly; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; SASS ops per step and thread: {ops_text(ops)})")
-        not_under(what, ms, bound_ms)
+            f"{ms:.4f} ms ({trials}, least {best_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; SASS "
+            f"ops per step and thread: {ops_text(ops)})")
+        not_under(what, best_ms, bound_ms)
         if kernel == "nfa_packed":
             prologue = sass_prologue_alu(builds[key].so, kernel, targs)
             diff = ops["alu"] - sliced_ops[k]["alu"]
@@ -625,7 +729,8 @@ def phase_alternates(builds: dict, clock_hz: float, sliced: dict) -> dict:
                                      f"sliced NFA's ({diff:+g} ALU per step)")
         rows.append((what, k, ms, bound_ms))
         entries.setdefault(kernel, dict(k=k, max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms, bound_ms=bound_ms))
+                                        best_ms=best_ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms))
     least = {k: min(bounds.values()) for k, bounds in own.items()}
     for k, bounds in own.items():
         log(f"[alternates] function bound at k={k}: {least[k][0]:.4f} ms, "
@@ -2286,6 +2391,7 @@ def main(argv: list[str] | None = None) -> int:
     builds = phase_build()
     entries = {"nfa_sliced": phase_kernel(builds, clock_hz)}
     entries.update(phase_alternates(builds, clock_hz, entries["nfa_sliced"]))
+    bench_launches = phase_bench(entries["nfa_sliced"])
     phase_searchscheme()
     phase_limit(builds, clock_hz)
     phase_alt_limit(builds, clock_hz)
@@ -2297,7 +2403,8 @@ def main(argv: list[str] | None = None) -> int:
             f"{time.perf_counter() - t0:.2f} s")
         # each kernel's launches by path, each path's counted from 0
         paths = {"nfa_sliced": {"default run":
-                                phase_main_path(fasta, tmp, 16)}}
+                                phase_main_path(fasta, tmp, 16),
+                                "bench": bench_launches}}
         phase_main_path(fasta, tmp, 32)
         for k in (16, 17, 32):
             phase_parity(fasta, tmp, k)
@@ -2318,6 +2425,7 @@ def main(argv: list[str] | None = None) -> int:
     entries["sort_stage"], probe_launches = phase_sort_stage(builds, clock_hz)
     paths["sort_stage"] = {"probe": probe_launches}
     log(f"[launches] by path: {json.dumps(paths)}")
+    log(card_line())  # again beside the numbers, where a kept tail holds it
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

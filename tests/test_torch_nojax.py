@@ -2,8 +2,8 @@
 
 A subprocess blocks ``jax`` and the JAX package (``sys.modules[name] =
 None`` makes their import fail), imports every module of
-``approx_counter_tpu_torch`` (the three of ``dist/`` and ``searchscheme``
-among them), imports the names each sub-package's ``__init__`` re-exports,
+``approx_counter_tpu_torch`` (the three of ``dist/``, ``searchscheme`` and
+the bench among them), imports the names each sub-package's ``__init__`` re-exports,
 holds a plain count to ``search_scheme_error_count``, and runs a
 tiny ``run_pipeline`` (once more at ``-mr 2`` through the device window
 pool) and ``run_pipeline_multihost`` on the CPU.
@@ -35,6 +35,7 @@ SCRIPT = textwrap.dedent(r"""
     dist = {"approx_counter_tpu_torch.dist." + m
             for m in ("sampling", "mesh", "multihost")}
     assert dist <= set(names), sorted(dist - set(names))
+    assert "approx_counter_tpu_torch.bench" in names, names
     subs = {"approx_counter_tpu_torch." + m for m in (
         "core", "count", "io", "kernels", "dist", "sample", "config",
         "searchscheme")}
