@@ -27,27 +27,33 @@ _SIGN = -(1 << 63)  # int64 with only bit 63 set
 
 
 def compare_count_keys(codes: torch.Tensor, counts: torch.Tensor, k: int,
-                       valid: torch.Tensor | None = None):
+                       valid: torch.Tensor | None = None,
+                       dimer: torch.Tensor | None = None):
     """The three keys whose ascending lexicographic order is CompareCount
     order: ``~count`` (in the counts' own signed integer dtype), the int32
     dimer sum, and ``~code`` with the code's sign bit flipped (descending
     unsigned order, int64).
 
     ``counts`` are non-negative; ``valid`` optionally masks entries, which
-    then rank as count 0, after every count >= 1.
+    then rank as count 0, after every count >= 1.  ``dimer`` is the codes'
+    ``dimer_sum`` when the caller has it already.
     """
     if valid is not None:
         counts = torch.where(valid, counts, 0)
-    return ~counts, dimer_sum(codes, k), ~(codes ^ _SIGN)
+    if dimer is None:
+        dimer = dimer_sum(codes, k)
+    return ~counts, dimer, ~(codes ^ _SIGN)
 
 
 def compare_count_order(codes: torch.Tensor, counts: torch.Tensor, k: int,
-                        valid: torch.Tensor | None = None) -> torch.Tensor:
+                        valid: torch.Tensor | None = None,
+                        dimer: torch.Tensor | None = None) -> torch.Tensor:
     """Permutation putting int64 ``codes`` (uint64 bits, k <= 32) with their
-    ``counts`` into CompareCount order (``valid`` as in
+    ``counts`` into CompareCount order (``valid`` and ``dimer`` as in
     ``compare_count_keys``): three stable sorts, least significant key
     first, so equal entries keep their input order."""
-    by_count, by_dimer, by_code = compare_count_keys(codes, counts, k, valid)
+    by_count, by_dimer, by_code = compare_count_keys(codes, counts, k, valid,
+                                                     dimer)
     order = torch.sort(by_code, stable=True).indices
     order = order[torch.sort(by_dimer[order], stable=True).indices]
     return order[torch.sort(by_count[order], stable=True).indices]

@@ -1,3 +1,4 @@
-# exact_count_select takes a row mask, so it also stands for the JAX
-# package's exact_count_select_rows.
-from approx_counter_tpu_torch.count.exact import exact_count_select  # noqa: F401
+from approx_counter_tpu_torch.count.exact import (  # noqa: F401
+    exact_count_select,
+    exact_count_select_rows,
+)

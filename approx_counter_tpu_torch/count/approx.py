@@ -5,13 +5,14 @@ Port of ``approx_counter_tpu/count/approx.py``, the ``errorCount`` and
 reference stores ``results[kmer] = total`` for every candidate, zero totals
 included, and those appear in the exported ranking.
 
-``rank_with_zero_counts`` is the pipeline's re-rank: there every row is a
-real candidate (the selection keeps exactly ``n_keep`` of them), so zero
-counts rank like any other count and need none of the JAX version's +1 key
-offset for padded slots.  A resume list may repeat a code: its copies are
-equal in every key and rank side by side.  ``approx_count_rank`` keeps the
-JAX function's padded selection (a ``sel_valid`` mask) and with it the +1
-offset, so that a valid zero count still ranks before every padded slot.
+``rank_with_zero_counts`` is the pipeline's re-rank.  Given a ``valid``
+mask, as the single-device pass's fixed-cap selection gives it and
+``approx_count_rank`` takes it, it keeps the JAX version's +1 key offset,
+so that a valid zero count still ranks before every padded slot.  Without
+one every row is a real candidate (the eager pass keeps exactly ``n_keep``
+of them, a resume pass scores a list), so zero counts rank like any other
+count.  A resume list may repeat a code: its copies are equal in every key
+and rank side by side.
 """
 
 from __future__ import annotations
@@ -22,10 +23,18 @@ from approx_counter_tpu_torch.core.ordering import compare_count_order
 from approx_counter_tpu_torch.kernels.bpm import MAXERR, approx_counts, build_peq
 
 
-def rank_with_zero_counts(codes: torch.Tensor, counts: torch.Tensor, k: int):
-    """(codes, counts) of the candidates in CompareCount order."""
-    order = compare_count_order(codes, counts.to(torch.int64), k)
-    return codes[order], counts[order]
+def rank_with_zero_counts(codes: torch.Tensor, counts: torch.Tensor, k: int,
+                          valid: torch.Tensor | None = None):
+    """(codes, counts) of the candidates in CompareCount order; given a
+    bool ``valid`` mask, (codes, counts, valid) with every invalid slot last
+    and its count 0."""
+    if valid is None:
+        order = compare_count_order(codes, counts.to(torch.int64), k)
+        return codes[order], counts[order]
+    # an invalid slot's code was still counted as a real k-mer: mask it
+    counts = torch.where(valid, counts, 0)
+    order = compare_count_order(codes, counts.to(torch.int64) + 1, k, valid)
+    return codes[order], counts[order], valid[order]
 
 
 def approx_count_rank(windows: torch.Tensor, n_valid: int,
@@ -46,7 +55,4 @@ def approx_count_rank(windows: torch.Tensor, n_valid: int,
     window_valid = torch.arange(W, device=windows.device) < n_valid
     counts = approx_counts(build_peq(codes, k), windows.t().contiguous(),
                            window_valid, k, maxerr)
-    # an invalid slot's peq row still counts as a real k-mer: mask it
-    counts = torch.where(sel_valid, counts, 0)
-    order = compare_count_order(codes, counts.to(torch.int64) + 1, k, sel_valid)
-    return codes[order], counts[order], sel_valid[order]
+    return rank_with_zero_counts(codes, counts, k, sel_valid)

@@ -1,42 +1,53 @@
 """Exact k-mer counting and top-N candidate selection.
 
-Port of ``exact_count_select_rows(transposed=True)``
-(``approx_counter_tpu/count/exact.py``).  Replaces the reference's
+Port of ``approx_counter_tpu/count/exact.py``.  Replaces the reference's
 sliding-window hash-map count and sorted selection (``count_kmers``
 approx_counter.cpp:487-519, ``get_most_frequent`` :396-405) with torch ops:
 
   1. pack every window position's k-mer into an int64 code in one sweep
      over the text rows, tracking N and pad as masks;
-  2. sort the valid codes and run-length count them
-     (``unique_consecutive``);
+  2. sort the codes and run-length count them;
   3. drop low-complexity (DUST) and forbidden codes among the unique ones
      (the filters depend only on the code);
   4. rank the survivors in CompareCount order and keep the first ``limit``
      or, in solid mode (``solid_km > 0``, ``get_solid_kmers``
      approx_counter.cpp:372-388), every survivor counted ``solid_km`` times
-     or more.  Solid mode has no cap: torch shapes follow the data, so the
-     JAX package's cap regrowth has no counterpart here.
+     or more.
 
-Steps 1-2 are ``exact_count_local`` and steps 3-4 ``select_counted``;
-``dist/mesh.py:exact_count_select_sharded`` runs the first on each rank's
-windows and the second on the codes each rank owns.  Everything is a sort
-or a sum over positions, so the result does not depend on the window order.
+Two forms of it.  ``exact_count_select_rows``, the single-device pass's,
+has fixed shapes and no host sync, so a CUDA graph can hold it: every
+position is sorted (invalid ones as code 0, taken out of that code's run
+again), runs are found by a boundary mask and a reverse ``cummin``, and the
+selection is ``cap`` slots with a validity mask; the caller re-runs it at a
+larger ``cap`` when ``n_keep`` outgrows it (the JAX package's cap
+regrowth).  ``exact_count_select`` follows the data's shapes:
+``exact_count_local`` (steps 1-2, ``unique_consecutive`` on the valid
+codes) then ``select_counted`` (steps 3-4); ``dist/mesh.py`` runs the
+first on each rank's windows and the second on the codes each rank owns.
+Everything is a sort or a sum over positions, so the result does not
+depend on the window order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from approx_counter_tpu_torch.core.complexity import dimer_sum
-from approx_counter_tpu_torch.core.ordering import compare_count_order
+from approx_counter_tpu_torch.core.complexity import dimer_sum, max_dimer_sum
+from approx_counter_tpu_torch.core.ordering import _SIGN, compare_count_order
+
+_I64_MAX = (1 << 63) - 1
+#: Forbidden codes one broadcast compare of ``exact_count_select_rows``
+#: takes: its bool intermediate is P x this.
+FORBID_CHUNK = 16
+#: Rows of ``_suffix_min``'s first level.
+SCAN_ROWS = 1024
 
 
-def exact_count_local(windows_t: torch.Tensor, row_mask: torch.Tensor,
-                      k: int):
-    """Steps 1-2 on a window batch (uint8 ``[m, n]``, text-major; bool row
-    mask ``[n]``): ``(codes, counts, had_n)``, the unique int64 codes of the
-    valid positions in ascending order, their int64 counts, and the number
-    of N-containing k-mers in real windows as an int64 scalar tensor."""
+def _positions(windows_t: torch.Tensor, row_mask: torch.Tensor, k: int):
+    """Step 1 on a window batch (uint8 ``[m, n]``, text-major; bool row mask
+    ``[n]``): every position's int64 code and validity, flat, and the
+    number of N-containing k-mers in real windows as an int64 scalar
+    tensor."""
     if not 2 <= k <= 32:
         raise ValueError(f"exact_count_select takes 2 <= k <= 32, got {k}")
     m, n = windows_t.shape
@@ -59,8 +70,16 @@ def exact_count_local(windows_t: torch.Tensor, row_mask: torch.Tensor,
     # positions touching padding are not real sliding positions.
     had_n = (has_n & ~has_pad & row_valid).sum()
     valid = ~(has_n | has_pad) & row_valid
+    return code.reshape(-1), valid.reshape(-1), had_n
 
-    # --- 2. sort + run-length count -----------------------------------------
+
+def exact_count_local(windows_t: torch.Tensor, row_mask: torch.Tensor,
+                      k: int):
+    """Steps 1-2 on a window batch (uint8 ``[m, n]``, text-major; bool row
+    mask ``[n]``): ``(codes, counts, had_n)``, the unique int64 codes of the
+    valid positions in ascending order, their int64 counts, and the number
+    of N-containing k-mers in real windows as an int64 scalar tensor."""
+    code, valid, had_n = _positions(windows_t, row_mask, k)
     codes, counts = torch.unique_consecutive(
         torch.sort(code[valid]).values, return_counts=True
     )
@@ -111,3 +130,153 @@ def exact_count_select(
     out = select_counted(codes, counts, k, lc_sum_thr, forbidden, limit,
                          solid_km)
     return dict(out, n_unique=codes.numel(), had_n=int(had_n))
+
+
+def _suffix_min(x: torch.Tensor) -> torch.Tensor:
+    """``min(x[i:])`` at every i of int64 ``x``, the reverse running
+    minimum (``lax.cummin(reverse=True)``), in two levels: along each row
+    of a ``[SCAN_ROWS, ceil(P / SCAN_ROWS)]`` view, then across the rows'
+    minima.  ``torch.cummin`` scans a 1-D tensor in one thread block (9.81
+    ms at P = 3,440,000 on an NVIDIA H100 80GB HBM3 at 700 W); rows scan
+    in parallel."""
+    P = x.shape[0]
+    cols = -(-P // SCAN_ROWS)
+    pad = x.new_full((SCAN_ROWS * cols - P,), _I64_MAX)
+    rows = torch.cat([x, pad]).view(SCAN_ROWS, cols).flip(1)
+    rows = torch.cummin(rows, 1).values.flip(1)
+    # the least entry of the rows after each row
+    after = torch.cummin(rows[:, 0].flip(0), 0).values.flip(0)
+    after = torch.cat([after[1:], after.new_full((1,), _I64_MAX)])
+    return torch.minimum(rows, after[:, None]).reshape(-1)[:P]
+
+
+def _topk_global(x: torch.Tensor, cap: int):
+    """The ``cap`` smallest of int64 ``x`` (values ascending, indices), in
+    two levels of ``torch.topk``: each row's ``cap`` smallest of an
+    ``[R, P/R]`` reshape, then the ``cap`` smallest of those.  Exact: fewer
+    than ``cap`` entries anywhere rank before a global winner, so it is
+    among its row's.  R is the largest power of two up to 256 that divides
+    P with rows at least ``cap`` wide; one flat ``topk`` when none does.
+    Ties may take other members than a flat call would; ``_topk_rank``
+    does not depend on which."""
+    P = x.shape[0]
+    R = 256
+    while R > 1 and (P % R or P // R < cap):
+        R //= 2
+    if R == 1:
+        return torch.topk(x, cap, largest=False)
+    v, i = torch.topk(x.view(R, P // R), cap, dim=1, largest=False)
+    rows = torch.arange(R, device=x.device)[:, None] * (P // R)
+    v2, j = torch.topk(v.reshape(-1), cap, largest=False)
+    return v2, (rows + i).reshape(-1)[j]
+
+
+def _sort2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Permutation ordering entries by (a, b) ascending."""
+    order = torch.sort(b, stable=True).indices
+    return order[torch.sort(a[order], stable=True).indices]
+
+
+def _topk_rank(key1: torch.Tensor, ncode: torch.Tensor, cap: int):
+    """Indices of the first ``cap`` entries in (key1, ncode) ascending
+    order, in that order, without sorting all P entries: two top-k passes
+    and an exact sort of their 2 x ``cap`` union.
+
+    Let kb be the cap-th smallest key1, counted with multiplicity.  Every
+    winner has key1 < kb, or key1 == kb and an ncode among the kb class's
+    smallest.  The first top-k (smallest key1) holds every entry with key1
+    < kb; the second (smallest ncode inside the kb class; entries outside
+    it keyed ``INT64_MAX``) holds the class's ncode winners.  The one
+    corner, a class member whose own ncode is ``INT64_MAX`` (code 0),
+    ranks last in its class, so it wins only when the whole class fits in
+    the first top-k.  The union therefore covers the true winners, and
+    sorting it, a repeated index keyed last, puts them in order.  The
+    class can be far larger than ``cap``: count-1 k-mers sharing a dimer
+    sum run into the millions at the default run's size."""
+    v1, i1 = _topk_global(key1, cap)
+    in_class = key1 == v1[cap - 1]
+    _, i2 = _topk_global(torch.where(in_class, ncode, _I64_MAX), cap)
+    idx = torch.sort(torch.cat([i1, i2])).values
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=idx.device),
+                     idx[1:] == idx[:-1]])
+    order = _sort2(torch.where(dup, _I64_MAX, key1[idx]),
+                   torch.where(dup, _I64_MAX, ncode[idx]))
+    return idx[order[:cap]]
+
+
+def _cap_slice(x: torch.Tensor, cap: int) -> torch.Tensor:
+    """``x[:cap]``, padded with zeros to ``cap`` entries when x is shorter
+    (a regrown cap can pass P on a small batch)."""
+    if x.shape[0] >= cap:
+        return x[:cap]
+    return torch.cat([x, x.new_zeros(cap - x.shape[0])])
+
+
+def exact_count_select_rows(
+    windows_t: torch.Tensor,   # uint8 [m, n]: text-major window batch
+    row_mask: torch.Tensor,    # bool [n]: which windows are real
+    k: int,
+    lc_sum_thr: int,           # integer dimer-sum threshold (lc_sum_threshold)
+    forbidden: torch.Tensor,   # int64 [F] codes (F may be 0)
+    limit: int,
+    solid_km: int,
+    cap: int,                  # selection slots (>= the k-mers kept)
+) -> dict:
+    """``exact_count_select`` in fixed shapes, with no host sync: the
+    first ``cap`` k-mers in CompareCount order among those that pass the
+    filters (and, with ``solid_km > 0``, count at least ``solid_km``).
+    Returns ``sel_codes`` (int64 ``[cap]``), ``sel_counts`` (int64
+    ``[cap]``) and ``sel_valid`` (bool ``[cap]``: the first ``n_keep``
+    slots), and ``n_unique``, ``n_pass``, ``n_keep`` (``n_pass`` in solid
+    mode, else at most ``limit``) and ``had_n`` as 0-d int64 tensors.
+    Slots past ``n_keep`` hold whatever ranks there; ``n_keep > cap``
+    means the caller must run it again at a larger ``cap``."""
+    code, valid, had_n = _positions(windows_t, row_mask, k)
+    P = code.shape[0]
+    dev = code.device
+
+    # --- 2. sort + run-length count -----------------------------------------
+    # Invalid positions sort as code 0 (the all-A k-mer), which comes first
+    # in unsigned order (the sign bit flipped for the signed sort), so they
+    # join the first run, and that run's count drops by how many there are.
+    s = torch.sort(torch.where(valid, code, 0) ^ _SIGN).values ^ _SIGN
+    idx = torch.arange(P, device=dev)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          s[1:] != s[:-1]])
+    # the next run's start after each position: a reverse running minimum
+    next_start = torch.cat([_suffix_min(torch.where(is_start, idx, P))[1:],
+                            idx.new_full((1,), P)])
+    n_invalid = P - valid.sum()
+    run_count = next_start - idx - torch.where(idx == 0, n_invalid, 0)
+    is_start &= run_count > 0  # the first run may hold invalid positions only
+    n_unique = is_start.sum()
+
+    # --- 3. filters on the run starts ---------------------------------------
+    dimer = dimer_sum(s, k)
+    keep = is_start & (dimer < lc_sum_thr)
+    for f0 in range(0, forbidden.numel(), FORBID_CHUNK):
+        chunk = forbidden[f0:f0 + FORBID_CHUNK]
+        keep &= ~(s[:, None] == chunk[None, :]).any(dim=1)
+    count = torch.where(keep, run_count, 0)
+    if solid_km > 0:
+        keep &= count >= solid_km
+        count = torch.where(keep, count, 0)
+    n_pass = keep.sum()
+
+    # --- 4. CompareCount top-cap --------------------------------------------
+    # (count desc, dimer asc) in one key; the code, descending unsigned, in
+    # a second (``~(code ^ sign)``).  Every position that did not pass (a
+    # filtered run start, any other position of a run) has count 0 and so
+    # ranks after every one that did.
+    if k <= 16 and P > 2 * cap:
+        key1 = ((P - count) << max_dimer_sum(k).bit_length()) | dimer
+        top = _topk_rank(key1, ~(s ^ _SIGN), cap)
+    else:
+        top = compare_count_order(s, count, k, keep, dimer)[:cap]
+    sel_codes = _cap_slice(s[top], cap)
+    sel_counts = _cap_slice(count[top], cap)
+    n_keep = n_pass if solid_km > 0 else n_pass.clamp(max=limit)
+    sel_valid = (torch.arange(cap, device=dev) < n_keep) & (sel_counts > 0)
+    return dict(sel_codes=sel_codes, sel_counts=sel_counts,
+                sel_valid=sel_valid, n_unique=n_unique, n_pass=n_pass,
+                n_keep=n_keep, had_n=had_n)

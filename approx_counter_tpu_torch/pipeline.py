@@ -10,9 +10,15 @@ read count by *mutation* that persists across runs/ends (:844-848).
 
 Each pass ships its window batch to the device 2-bit packed (the sparse-N
 format, or the dense two-plane one for a batch with many Ns; through pinned
-memory and a non-blocking copy on a CUDA device) and counts there eagerly:
-the exact stage as torch ops, the approximate counts through the CUDA
-kernel (``kernels/bpm.py``).  Passes are pipelined as in the JAX package:
+memory and a non-blocking copy on a CUDA device) and counts there as the
+JAX package's fused pass does: one fixed-shape program (the exact stage's
+``cap`` slots, the approximate counts through the CUDA kernel of
+``kernels/bpm.py``, the re-rank) whose whole result is one packed vector,
+fetched once.  On a CUDA device that program is captured once per shape as
+a CUDA graph and replayed every pass; on the CPU it runs eagerly.  A pass
+whose ``n_keep`` outgrows ``cap`` runs again at a larger one (the JAX
+package's cap regrowth; solid mode rides it).  Passes are pipelined as in
+the JAX package:
 while one pass counts on the engine's worker thread, the driver samples,
 packs and ships the next.  Multi-pass runs can instead ship every eligible
 read's windows once into a device window pool (``--device-pool``) and then
@@ -46,6 +52,7 @@ from __future__ import annotations
 import concurrent.futures
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -54,6 +61,7 @@ import torch
 from approx_counter_tpu_torch.core.codec import (
     BASE_PAD,
     NCAP,
+    join_code,
     pack_windows_host,
     sparse_ncols,
     unpack_windows,
@@ -61,7 +69,10 @@ from approx_counter_tpu_torch.core.codec import (
 )
 from approx_counter_tpu_torch.core.complexity import lc_sum_threshold
 from approx_counter_tpu_torch.count.approx import rank_with_zero_counts
-from approx_counter_tpu_torch.count.exact import exact_count_select
+from approx_counter_tpu_torch.count.exact import (
+    exact_count_select,
+    exact_count_select_rows,
+)
 from approx_counter_tpu_torch.io.export import (
     export_counter,
     parse_exact_export,
@@ -70,7 +81,11 @@ from approx_counter_tpu_torch.io.fastx import read_fastx
 from approx_counter_tpu_torch.io.kmer_list import parse_kmer_list
 from approx_counter_tpu_torch.io.logging import Log, error, warn
 from approx_counter_tpu_torch.io.native import pack_windows_sparse_native
-from approx_counter_tpu_torch.kernels.bpm import approx_counts, build_peq
+from approx_counter_tpu_torch.kernels.bpm import (
+    _as_int32_bits,
+    approx_counts,
+    build_peq,
+)
 from approx_counter_tpu_torch.params import Params
 from approx_counter_tpu_torch.io.stream import stream_sample_windows
 from approx_counter_tpu_torch.sample.sampler import gather_rows, sample_windows
@@ -78,10 +93,60 @@ from approx_counter_tpu_torch.sample.sampler import gather_rows, sample_windows
 #: Row granularity of the JAX package's device batches; the pool decision
 #: prices a pass's upload in rows padded to it, as the JAX package does.
 WT = 256
+#: Candidate granularity of a pass's selection: a regrown cap is ``n_keep``
+#: rounded up to it, as in the JAX package.
+CT = 128
+_M32 = 0xFFFFFFFF
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def pass_cap(limit: int) -> int:
+    """A pass's first selection cap, the JAX package's: ``limit`` rounded
+    up to ``CT``, at least 512 and at most 2^20."""
+    return max(512, _round_up(min(limit, 1 << 20), CT))
+
+
+def pack_pass_output(ex: dict, approx: tuple, k: int) -> torch.Tensor:
+    """A fixed-shape pass's whole result as one int32 vector holding the
+    JAX package's uint32 layout (``_pack_pass_output``): ``n_unique``,
+    ``n_keep``, ``had_n``, ``n_pass``, then blocks of ``cap``: the exact
+    selection's code low words, counts and validity, the approximate
+    ranking's code low words, counts and validity, and for k > 16 the two
+    code high-word blocks.  ``ex`` is ``exact_count_select_rows``'s dict,
+    ``approx`` ``rank_with_zero_counts``'s (codes, counts, valid)."""
+    codes, counts, valid = approx
+    sel = ex["sel_codes"]
+    parts = [torch.stack([ex["n_unique"], ex["n_keep"], ex["had_n"],
+                          ex["n_pass"]]),
+             sel & _M32, ex["sel_counts"], ex["sel_valid"].long(),
+             codes & _M32, counts.long(), valid.long()]
+    if k > 16:
+        parts += [(sel >> 32) & _M32, (codes >> 32) & _M32]
+    return _as_int32_bits(torch.cat(parts))
+
+
+def unpack_pass_output(arr: np.ndarray, cap: int, k: int) -> dict:
+    """Host inverse of ``pack_pass_output``, the JAX package's
+    ``unpack_pass_output``: the same dict of uint32 blocks and scalars."""
+    arr = np.asarray(arr).view(np.uint32)
+    blocks = [arr[4 + i * cap: 4 + (i + 1) * cap] for i in range(8)]
+    zeros = np.zeros(cap, np.uint32)
+    ex = dict(
+        n_unique=np.int32(arr[0]), n_keep=np.int32(arr[1]),
+        had_n=np.int32(arr[2]), n_pass=np.int32(arr[3]),
+        sel_lo=blocks[0], sel_count=blocks[1],
+        sel_valid=blocks[2].astype(bool),
+        sel_hi=blocks[6] if k > 16 else zeros,
+    )
+    return dict(
+        exact=ex,
+        approx_hi=blocks[7] if k > 16 else zeros,
+        approx_lo=blocks[3], approx_count=blocks[4],
+        approx_valid=blocks[5].astype(bool),
+    )
 
 
 def _fmt_num(x: float) -> str:
@@ -252,7 +317,9 @@ def pool_rows(idx_ext: torch.Tensor):
 class _PendingPass:
     """A dispatched pass: its batch is on the device and its counting runs
     on the engine's worker thread, on the engine's own stream, so the
-    caller can sample and ship the next pass meanwhile."""
+    caller can sample and ship the next pass meanwhile.  The worker also
+    fetches the pass's packed output, before the next pass's replay can
+    overwrite it, and runs any cap regrowth while the batch is at hand."""
 
     def __init__(self, engine: "Engine", body, tensors: tuple):
         ready = None
@@ -265,8 +332,64 @@ class _PendingPass:
 
     def finish(self):
         """Wait for the pass and return what ``Engine.count_one_end``
-        returns.  An exception raised by the pass is raised here."""
+        returns (the unpacked fetch, after any cap regrowth).  An exception
+        raised by the pass is raised here."""
         return self._future.result()
+
+
+class _FusedGraph:
+    """One fixed-shape pass on a CUDA device, captured as a CUDA graph: its
+    static inputs (``windows_t`` uint8 ``[m, n]``, ``row_mask`` bool
+    ``[n]``), the graph and its static packed output.  ``run`` copies a
+    batch into the inputs, replays the graph and fetches the output: on
+    the first call it runs ``body`` once eagerly on the current stream (the
+    warm-up: kernel builds and lazily loaded modules) and then captures it
+    (``capture_error_mode="thread_local"``: the caller's thread may upload
+    the next batch meanwhile).  ``launches`` is how many times the capture
+    called the count kernel's wrapper; the wrapper's counter is set back by
+    that many after the capture, which launched nothing, and goes up by
+    that many at every replay."""
+
+    def __init__(self, body, counter, m: int, n: int, device: torch.device):
+        self.body = body
+        self.counter = counter  # the count wrapper, with its ``launches``
+        self.windows_t = torch.empty((m, n), dtype=torch.uint8, device=device)
+        self.row_mask = torch.empty(n, dtype=torch.bool, device=device)
+        self.graph = None
+        self.out = None
+        self.launches = 0
+        self.capture_ms = None
+        self.replays = 0
+
+    def _capture(self) -> None:
+        # capture_begin/_end, not ``torch.cuda.graph``: that one also
+        # synchronizes the card, collects garbage and empties the cache,
+        # under the feet of the caller's thread
+        t0 = time.perf_counter()
+        self.body(self.windows_t, self.row_mask)
+        graph = torch.cuda.CUDAGraph()
+        before = self.counter.launches
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            self.out = self.body(self.windows_t, self.row_mask)
+        finally:
+            graph.capture_end()
+        self.launches = self.counter.launches - before
+        self.counter.launches = before
+        self.graph = graph
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def run(self, windows_t: torch.Tensor, row_mask: torch.Tensor):
+        """The packed output (numpy int32) of one pass over the batch, on
+        the current stream."""
+        self.windows_t.copy_(windows_t)
+        self.row_mask.copy_(row_mask)
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.counter.launches += self.launches
+        self.replays += 1
+        return self.out.cpu().numpy()
 
 
 class Engine:
@@ -274,9 +397,12 @@ class Engine:
 
     ``exact`` runs the exact stage and ``counts`` computes the
     approximate counts (``exact_count_select``'s and ``approx_counts``'s
-    arguments and results); the multihost orchestrator passes
+    arguments and results).  With the default ``exact`` a pass is the fused
+    one (``_fused_pass``: one fixed-shape program, a CUDA graph on a CUDA
+    device); the multihost orchestrator passes
     ``dist/mesh.py:exact_count_select_sharded`` and
-    ``approx_counts_sharded``, which count every rank's windows.
+    ``approx_counts_sharded``, which count every rank's windows, and its
+    passes run eagerly (``_count_eager``).
 
     A pass is dispatched (``start_pass``, ``start_pass_pool``) and then
     finished: dispatch packs the batch on the host and ships it (sparse-N
@@ -302,12 +428,18 @@ class Engine:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._pool = None
+        self._fused = exact is exact_count_select
+        # (cap, m, n, solid) -> _FusedGraph; the lock keeps two threads
+        # from filling one graph's static inputs at once
+        self._graphs: dict[tuple, _FusedGraph] = {}
+        self._graph_lock = threading.Lock()
 
     def close(self) -> None:
         """Wait for every dispatched pass, dropping its result and its
-        exception, and stop the worker thread.  A pass dispatched after
-        this raises."""
+        exception, stop the worker thread and free the CUDA graphs.  A pass
+        dispatched after this raises."""
         self._worker.shutdown(wait=True)
+        self._graphs.clear()
 
     def _on_stream(self, body, ready, tensors: tuple):
         """Run ``body`` on the worker thread: on the CPU as it is, on a
@@ -396,16 +528,94 @@ class Engine:
 
     def count_one_end(self, windows: np.ndarray, n_valid: int):
         """One pass over a sampled batch (uint8 ``[n, m]``, rows past
-        ``n_valid`` are padding).  Returns ``(exact_sel, approx_sel,
-        stats)``: (codes, counts) uint64 numpy pairs in CompareCount order
-        and the counters the log lines print.  In solid mode the exact
-        selection holds every solid k-mer and the approximate one its first
-        ``limit``."""
+        ``n_valid`` are padding), on the caller's thread.  Returns
+        ``(exact_sel, approx_sel, stats)``: (codes, counts) uint64 numpy
+        pairs in CompareCount order and the counters the log lines print.
+        In solid mode the exact selection holds every solid k-mer and the
+        approximate one its first ``limit``."""
         return self._count(*self.device_windows(windows, n_valid))
 
     def _count(self, windows_t, row_mask):
-        """The pass on device-resident windows: exact stage, approximate
-        counts, re-rank, fetch."""
+        """The pass on device-resident windows (``[m, n]`` uint8, bool row
+        mask): the fused pass, or the eager one for an engine built with
+        another exact stage."""
+        if self._fused:
+            return self._fused_pass(windows_t, row_mask)
+        return self._count_eager(windows_t, row_mask)
+
+    def _fused_pass(self, windows_t, row_mask):
+        """The JAX package's pass: the fixed-shape program at the first
+        cap, one fetch of its packed output, and again at ``n_keep``
+        rounded up to ``CT`` while ``n_keep`` outgrows the cap."""
+        prm = self.prm
+        cap = pass_cap(prm.limit)
+        while True:
+            out = unpack_pass_output(
+                self._pass_output(cap, windows_t, row_mask), cap, prm.k)
+            n_keep = int(out["exact"]["n_keep"])
+            if n_keep <= cap:
+                break
+            cap = _round_up(n_keep, CT)
+        ex = out["exact"]
+        n_approx = min(int(out["approx_valid"].sum()), prm.limit)
+        return ((join_code(ex["sel_hi"][:n_keep], ex["sel_lo"][:n_keep]),
+                 ex["sel_count"][:n_keep].astype(np.uint64)),
+                (join_code(out["approx_hi"][:n_approx],
+                           out["approx_lo"][:n_approx]),
+                 out["approx_count"][:n_approx].astype(np.uint64)),
+                dict(n_unique=int(ex["n_unique"]), n_keep=n_keep,
+                     had_n=int(ex["had_n"])))
+
+    def _fused_body(self, windows_t, row_mask, cap: int) -> torch.Tensor:
+        """The fixed-shape pass: exact stage at ``cap`` slots, approximate
+        counts of all of them, re-rank with the invalid slots last, packed
+        (``pack_pass_output``).  No host sync."""
+        prm = self.prm
+        ex = exact_count_select_rows(windows_t, row_mask, prm.k,
+                                     self.lc_sum_thr, self.forbidden,
+                                     prm.limit, prm.solid_km, cap)
+        counts = self.counts(build_peq(ex["sel_codes"], prm.k), windows_t,
+                             row_mask, prm.k, maxerr=prm.max_error)
+        approx = rank_with_zero_counts(ex["sel_codes"], counts, prm.k,
+                                       ex["sel_valid"])
+        return pack_pass_output(ex, approx, prm.k)
+
+    def _fused_fn(self, cap: int, m: int, n: int) -> _FusedGraph:
+        """The CUDA graph of the pass at ``cap`` over ``[m, n]`` batches,
+        made at first use and cached per (cap, m, n, solid mode) like the
+        JAX package's ``_fused_cache``.  Of the graphs at a regrown cap,
+        which solid mode makes nearly every pass, only the newest is kept."""
+        key = (cap, m, n, self.prm.solid_km > 0)
+        graph = self._graphs.get(key)
+        if graph is None:
+            first = pass_cap(self.prm.limit)
+            if cap != first:
+                for old in [k for k in self._graphs if k[0] != first]:
+                    del self._graphs[old]
+            graph = self._graphs[key] = _FusedGraph(
+                lambda w, r: self._fused_body(w, r, cap), self.counts, m, n,
+                self.device)
+        return graph
+
+    def _pass_output(self, cap: int, windows_t, row_mask) -> np.ndarray:
+        """One run of the fixed-shape pass: its packed output as numpy
+        int32.  On the CPU the body runs eagerly; on a CUDA device the
+        batch is copied into the graph's static input and the graph
+        replayed on the engine's stream, after the caller's stream when the
+        caller is not on it (``count_one_end``)."""
+        if self._stream is None:
+            return self._fused_body(windows_t, row_mask, cap).numpy()
+        caller = torch.cuda.current_stream(self.device)
+        with (self._graph_lock, torch.cuda.device(self.device),
+              torch.cuda.stream(self._stream)):
+            if caller != self._stream:
+                self._stream.wait_stream(caller)
+            return self._fused_fn(cap, *windows_t.shape).run(windows_t,
+                                                              row_mask)
+
+    def _count_eager(self, windows_t, row_mask):
+        """The pass with data-dependent shapes (the multihost engine's):
+        exact stage, approximate counts, re-rank, fetch."""
         prm = self.prm
         ex = self.exact(windows_t, row_mask, prm.k, self.lc_sum_thr,
                         self.forbidden, prm.limit, prm.solid_km)

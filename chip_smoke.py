@@ -70,7 +70,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   9. Solid mode at full size: the default run at -sk 20 and at -sk 1.  The
      exact export holds n_keep lines, every count >= N, in CompareCount
      order; the approximate one min(n_keep, 500), adapters on top; the
-     launches are those the launch plan gives for each end's n_keep.  The
+     launches are those the fused pass's plan gives for the two ends'
+     n_keep (``pass_launches``: a replay at cap 512 and one at n_keep
+     rounded up to 128, each new graph warmed up once).  The
      kernel's time and bound at the -sk 20 start end's C and at the -sk 1
      one's.
  10. Resume: --from-exact on phase 4's warm k=16 exact .start, same seed:
@@ -118,6 +120,22 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      phase 2's kernel rate (C x W over its least trial's ms, timed as the
      bench times, scaled from W 40,000 to the bench's 40,960); its JSON
      line and its ``[bench]`` lines are printed again here.
+ 16. Fused pass: the single-device pass as one CUDA graph per shape, on
+     the default end batch at the defaults and at -sk 2 (its n_keep
+     outgrows the first cap, so a second graph at the regrown cap), and at
+     -sk 2 on a 2,000-window end batch: (a) each graph's replayed packed
+     vector equal to the same body run eagerly on the card and (but the
+     full -sk 2 batch) on the CPU; (b) the device-resident pass, the eager
+     body (the multihost engine's) against the replay in turns, by CUDA
+     events and host wall, the graph's host enqueue time and its replay
+     alone, launches a
+     replay, capture ms and the peak device memory of the graphs; (c) one
+     pass under ``torch.profiler``: one graph launch and no kernel launch
+     on the calling thread, the replay's kernels by name, the busy share.
+Every single-device pass of the phases runs the fused pass: a CUDA graph
+replayed once (twice on cap regrowth), each graph warmed up once by an
+eager run before its capture, so a default run launches the sliced kernel
+3 times (``pass_launches``).
 Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and the time of the busiest limit of its text loop's SASS
 (from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
@@ -483,6 +501,31 @@ def reset_launch_counts() -> None:
     bpm.approx_counts_myers.launches = 0
     bpm.approx_counts_packed.launches = {"myers": 0, "nfa": 0}
     sort_stage.stage_network.launches = 0
+
+
+def pass_launches(n_keeps: list[int], limit: int = 500) -> int:
+    """The sliced kernel's launches in a single-device run whose passes
+    (one batch shape) keep ``n_keeps``: each pass replays the graph at the
+    first cap and, when its n_keep outgrows it, at n_keep rounded up to
+    ``CT``; each graph's first use runs its body once eagerly before the
+    capture (the warm-up), and the engine keeps one graph at a regrown
+    cap.  A graph at ``cap`` launches the kernel ``word_launches(cap //
+    32)`` times."""
+    from approx_counter_tpu_torch.kernels.bpm import word_launches
+    from approx_counter_tpu_torch.pipeline import CT, _round_up, pass_cap
+
+    first, graphs, total = pass_cap(limit), set(), 0
+    for n_keep in n_keeps:
+        caps = [first] + ([_round_up(n_keep, CT)] if n_keep > first else [])
+        for cap in caps:
+            per = len(word_launches(cap // 32))
+            if cap not in graphs:
+                if cap != first:
+                    graphs = {c for c in graphs if c == first}
+                graphs.add(cap)
+                total += per  # the warm-up
+            total += per  # the replay
+    return total
 
 
 def main_case(rng, k: int):
@@ -1347,8 +1390,6 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
     """Phase 9: the default run at -sk 20 and -sk 1.  Returns, per N, the
     kept counts and launches, and the kernel's time and bound at each's
     start C."""
-    from approx_counter_tpu_torch.kernels.bpm import word_launches
-
     result = {}
     for sk in (20, 1):
         out, exact = f"{out_dir}/sk{sk}_out", f"{out_dir}/sk{sk}_exact"
@@ -1361,9 +1402,8 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
         if rc != 0:
             raise AssertionError(f"CLI -sk {sk} rc {rc}:\n{stdout}")
         kept = per_end_kept(stdout)
-        plan = {end: len(word_launches(-(-n // 32)))
-                for end, n in kept.items()}
-        if launches != sum(plan.values()):
+        plan = pass_launches([kept["start"], kept["end"]])
+        if launches != plan:
             raise AssertionError(f"-sk {sk}: {launches} launches, the plan "
                                  f"for n_keep {kept} gives {plan}")
         for which, adapter in ADAPTERS:
@@ -1381,7 +1421,9 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
                             "Approximate k-mer count")
         app_ms = per_end_ms(stdout, "Exporting approximate count", "Done")
         log(f"[solid] -sk {sk}: rc 0, n_keep {kept}, launches {launches} "
-            f"(plan {plan}; > {OLD_LIMIT} candidates: "
+            f"(plan {plan}: one pass at cap 512, one at n_keep rounded up "
+            f"to 128, each graph once more to warm up; > {OLD_LIMIT} "
+            f"candidates: "
             f"{ {e: n > OLD_LIMIT for e, n in kept.items()} }), exact exports "
             f"n_keep lines >= {sk} in CompareCount order, approx "
             f"min(n_keep, 500) lines with adapters on top; per-end wall "
@@ -1500,7 +1542,7 @@ def phase_stream(fasta: str, out_dir: str) -> dict:
                               f"{out_dir}/id_{mode}_exact", "--seed", "5"]
                              + (["--stream"] if mode == "stream" else []))
         launches[mode] = launch_counts()["nfa_sliced"]
-        if rc != 0 or launches[mode] != 2:
+        if rc != 0 or launches[mode] != pass_launches([500, 500]):
             raise AssertionError(f"-sn 60000 {mode} rc {rc}:\n{stdout}")
     for which in ("start", "end"):
         for kind in ("out", "exact"):
@@ -1597,14 +1639,14 @@ def phase_profile(fasta: str, out_dir: str) -> int:
     rc, stdout = run_cli([fasta, "-o", out, "-e", exact, "--seed", "5",
                           "--profile", prof])
     launches = launch_counts()["nfa_sliced"]
-    if rc != 0 or launches != 2:
+    if rc != 0 or launches != pass_launches([500, 500]):
         raise AssertionError(f"--profile rc {rc}, {launches} launches")
     for which in ("start", "end"):
         for kind in ("out", "exact"):
             same_bytes(f"{out_dir}/prof_{kind}_0.{which}",
                        f"{out_dir}/k16_warm_{kind}_0.{which}")
     events, sliced, gpu, shares, overlap = read_trace(f"{prof}/trace.json")
-    if len(sliced) != 2:
+    if len(sliced) != launches:
         raise AssertionError(f"trace: {len(sliced)} nfa_sliced kernels")
     if len(overlap) != 1:
         raise AssertionError(f"trace: {len(overlap)} prefetch ranges, want 1")
@@ -2049,7 +2091,7 @@ def phase_multihost(fasta: str, out_dir: str) -> dict:
     rc, stdout = run_cli([fasta, "--stream", "-sn", "60000", "-o",
                           f"{out_dir}/idst_out", "-e", f"{out_dir}/idst_exact",
                           "--seed", "5"])
-    if rc != 0 or launch_counts()["nfa_sliced"] != 2:
+    if rc != 0 or launch_counts()["nfa_sliced"] != pass_launches([500, 500]):
         raise AssertionError(f"identity --stream: rc {rc}")
     same_exports(f"{out_dir}/id1", f"{out_dir}/id2")
     same_exports(f"{out_dir}/id1", f"{out_dir}/idst")
@@ -2173,7 +2215,7 @@ def phase_dispatch(fasta: str, out_dir: str) -> dict:
             n = launch_counts()["nfa_sliced"]
             launches[f"-mr 3 --device-pool {mode}"] = n
             tags = stats_tags(stdout)
-            if rc != 0 or n != 6:
+            if rc != 0 or n != pass_launches([500] * 6):
                 raise AssertionError(f"-mr 3 --device-pool {mode}: rc {rc}, "
                                      f"{n} launches\n{stdout[-2000:]}")
             if seen["pool"] != (0 if mode == "off" else 6):
@@ -2183,7 +2225,7 @@ def phase_dispatch(fasta: str, out_dir: str) -> dict:
                 raise AssertionError(f"--device-pool {mode}: tags {tags}")
             if mode != "on":
                 same_run_exports(f"{out_dir}/mr3on", f"{out_dir}/mr3{mode}", 3)
-            log(f"[dispatch] -mr 3 -v 2 --device-pool {mode}: rc 0, 6 "
+            log(f"[dispatch] -mr 3 -v 2 --device-pool {mode}: rc 0, {n} "
                 f"launches, {seen['pool']} pool passes, "
                 f"{seen['dense']} dense uploads (the pool's own build "
                 f"included), (pipelined) on passes 2-6; per-pass walls "
@@ -2270,6 +2312,201 @@ def phase_dispatch(fasta: str, out_dir: str) -> dict:
         f"raw uint8 copy + transpose {raw:.4f} ms; bytes shipped per pass "
         f"{shipped}; pool build ({pool['E']} rows, both ends) {build:.4f} ms")
 
+    return launches
+
+
+def timed_passes(fn, reps: int) -> tuple[float, float]:
+    """(ms a pass by CUDA events on the calling stream, host wall ms a
+    pass) over ``reps`` calls after two warm-up calls; each call ends in
+    its host fetch."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def replay_trace(engine, cap: int, windows_t, row_mask, path: str) -> dict:
+    """One fused pass (copy, replay, fetch) from this thread under
+    ``torch.profiler``: the runtime calls this thread made in it by name,
+    the replay's kernels (those of the ``cudaGraphLaunch``'s correlation)
+    by name with their device ms, and the device-busy ms of the pass's
+    wall."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("fused pass"):
+            engine._pass_output(cap, windows_t, row_mask)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == "fused pass")
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    calls: dict = {}
+    launch_corr = []
+    for e in events:
+        if (e.get("cat", "").startswith("cuda_")
+                and e.get("tid") == span.get("tid")
+                and lo <= e["ts"] <= hi):
+            calls[e["name"]] = calls.get(e["name"], 0) + 1
+            if e["name"] == "cudaGraphLaunch":
+                launch_corr.append(e.get("args", {}).get("correlation"))
+    kernels: dict = {}
+    on_card = []
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        on_card.append((e["ts"], e["ts"] + e["dur"]))
+        if (e.get("cat") == "kernel"
+                and e.get("args", {}).get("correlation") in launch_corr):
+            name = e["name"][:60]
+            n, ms = kernels.get(name, (0, 0.0))
+            kernels[name] = (n + 1, ms + e["dur"] / 1e3)
+    return dict(calls=calls, kernels=kernels, busy_ms=busy_ms(on_card, lo, hi),
+                wall_ms=(hi - lo) / 1e3)
+
+
+def phase_fused(fasta: str, out_dir: str) -> dict:
+    """Phase 16: the fused pass on the default end batch, at the defaults
+    and at -sk 2 (whose n_keep outgrows the first cap), and at -sk 2 on a
+    2,000-window end batch.  (a) Each graph's replayed packed vector equals
+    the same body run eagerly on the card and (but at -sk 2 on the full
+    batch, whose regrown cap the plain count would take minutes over) on
+    the CPU.  (b) The device-resident pass, the eager body (the multihost
+    engine's) against the replay, in turns (eager, replay, replay, eager):
+    ms by CUDA events and host wall a pass; the last graph's host enqueue
+    time and its replay alone by CUDA events; the kernel's launches a
+    replay, each capture's ms (warm-up included) and the device memory of
+    the three engines' graphs.  (c) One default pass under
+    ``torch.profiler``: this thread's runtime calls (one graph launch, no
+    kernel launch), the replay's kernels by name and the pass's
+    device-busy share.  Returns the kernel's launches in each first pass."""
+    import torch
+
+    from approx_counter_tpu_torch.io.fastx import read_fastx
+    from approx_counter_tpu_torch.params import Params
+    from approx_counter_tpu_torch.pipeline import Engine, pass_cap
+    from approx_counter_tpu_torch.sample.sampler import sample_windows
+
+    reads = read_fastx(fasta)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    runs, launches = {}, {}
+    for tag, sn, sk, on_cpu in (("default", 40000, 0, True),
+                                ("-sk 2, 2,000 windows", 2000, 2, True),
+                                ("-sk 2", 40000, 2, False)):
+        batch = sample_windows(reads, sn, 100, end=True,
+                               rng=np.random.default_rng(16), pad_to=1)
+        prm = Params(k=16, sl=100, sn=sn, solid_km=sk)
+        engine = Engine(prm, "cuda")
+        windows_t, row_mask = engine.device_windows(batch.windows,
+                                                    batch.n_valid)
+        reset_launch_counts()
+        got = engine._count(windows_t, row_mask)
+        launches[f"fused pass {tag}"] = launch_counts()["nfa_sliced"]
+        n_keep = got[2]["n_keep"]
+        caps = sorted(key[0] for key in engine._graphs)
+        if (sk == 0) != (caps == [pass_cap(prm.limit)]):
+            raise AssertionError(f"{tag}: graphs at caps {caps}, n_keep "
+                                 f"{n_keep}")
+        cpu = Engine(prm, "cpu") if on_cpu else None
+        t0 = time.perf_counter()
+        for cap in caps:
+            replayed = engine._pass_output(cap, windows_t, row_mask)
+            eager = engine._fused_body(windows_t, row_mask, cap).cpu().numpy()
+            if not np.array_equal(replayed, eager):
+                raise AssertionError(f"{tag} cap {cap}: replay != eager")
+            if cpu and not np.array_equal(replayed, cpu._pass_output(
+                    cap, windows_t.cpu(), row_mask.cpu())):
+                raise AssertionError(f"{tag} cap {cap}: card != CPU")
+        cpu_s = time.perf_counter() - t0
+        if cpu:
+            cpu.close()
+        graphs = {key[0]: engine._graphs[key] for key in engine._graphs}
+        log(f"[fused] {tag}: n_keep {n_keep}, n_unique "
+            f"{got[2]['n_unique']}; graphs at caps {caps}: packed vector "
+            f"replayed == body eager on the card"
+            + (" == body on the CPU" if cpu else "")
+            + f" ({len(replayed)} words at cap {caps[-1]}; {cpu_s:.1f} s); "
+            f"nfa_sliced launches in the first pass "
+            f"{launches[f'fused pass {tag}']}, a replay "
+            f"{ {c: g.launches for c, g in graphs.items()} }; capture ms "
+            f"(warm-up + capture) "
+            f"{ {c: round(g.capture_ms, 4) for c, g in graphs.items()} }")
+        runs[tag] = (engine, windows_t, row_mask, caps)
+    torch.cuda.synchronize()
+    log(f"[fused] device memory of the three engines, their batches, graphs "
+        f"and inputs, over the phase's start: peak allocated "
+        f"{(torch.cuda.max_memory_allocated() - mem0) / 2**20:.1f} MiB, "
+        f"allocated {(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB, "
+        f"reserved {(torch.cuda.memory_reserved() - res0) / 2**20:.1f} MiB "
+        f"(the graphs' private pools among it)")
+
+    # (b) the eager body against the replay, in turns
+    for tag, (engine, windows_t, row_mask, caps) in runs.items():
+        rows = []
+        for which in ("eager", "replay", "replay", "eager"):
+            fn = engine._count_eager if which == "eager" else engine._count
+            ms, wall = timed_passes(lambda: fn(windows_t, row_mask), 10)
+            rows.append(f"{which} {ms:.4f} / {wall:.4f}")
+        # the last graph by hand, outside the pass: the host time to enqueue
+        # the copy and the replay, and the replay alone by CUDA events
+        # (these replays pass the count wrapper's counter by)
+        fused = engine._fused_fn(caps[-1], *windows_t.shape)
+        enqueue = []
+        with torch.cuda.stream(engine._stream):
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fused.windows_t.copy_(windows_t)
+                fused.row_mask.copy_(row_mask)
+                fused.graph.replay()
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+                fused.out.cpu()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            for _ in range(10):
+                fused.graph.replay()
+            b.record()
+        b.synchronize()
+        log(f"[fused] {tag}, device-resident pass, ms a pass by CUDA events "
+            f"/ host wall (10 passes after 2, in turns): {'; '.join(rows)}; "
+            f"the graph at cap {caps[-1]}: host enqueue of copy + replay "
+            f"{np.mean(enqueue):.4f} ms (least {min(enqueue):.4f}), replayed "
+            f"alone {a.elapsed_time(b) / 10:.4f} ms by CUDA events")
+
+    # (c) one pass under the profiler
+    engine, windows_t, row_mask, caps = runs["default"]
+    tr = replay_trace(engine, caps[0], windows_t, row_mask,
+                      f"{out_dir}/fused_trace.json")
+    calls = tr["calls"]
+    if (calls.get("cudaGraphLaunch") != 1 or calls.get("cudaLaunchKernel")
+            or calls.get("cuLaunchKernel")):
+        raise AssertionError(f"fused pass: runtime calls {calls}")
+    n_kernels = sum(n for n, _ in tr["kernels"].values())
+    top = sorted(tr["kernels"].items(), key=lambda kv: -kv[1][1])
+    log(f"[fused] one default pass under torch.profiler: this thread's "
+        f"runtime calls {json.dumps(calls)}; the replay ran {n_kernels} "
+        f"kernels, {sum(ms for _, ms in tr['kernels'].values()):.4f} device "
+        f"ms; device busy {tr['busy_ms']:.4f} of {tr['wall_ms']:.4f} ms "
+        f"({tr['busy_ms'] / max(tr['wall_ms'], 1e-9):.1%}); kernels by "
+        f"device ms (count, ms): "
+        + "; ".join(f"{name} {n} {ms:.4f}" for name, (n, ms) in top[:12]))
+    for engine, *_ in runs.values():
+        engine.close()
     return launches
 
 
@@ -2419,6 +2656,7 @@ def main(argv: list[str] | None = None) -> int:
         phase_profile(fasta, tmp)
         paths["nfa_sliced"].update(phase_multihost(fasta, tmp))
         paths["nfa_sliced"].update(phase_dispatch(fasta, tmp))
+        paths["nfa_sliced"].update(phase_fused(fasta, tmp))
     checks = phase_gpu_check()
     for name in ("bpm_myers", "bpm_packed", "nfa_packed"):
         paths[name] = {"gpu_check": checks[name]}

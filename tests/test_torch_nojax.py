@@ -4,7 +4,8 @@ A subprocess blocks ``jax`` and the JAX package (``sys.modules[name] =
 None`` makes their import fail), imports every module of
 ``approx_counter_tpu_torch`` (the three of ``dist/``, ``searchscheme`` and
 the bench among them), imports the names each sub-package's ``__init__`` re-exports,
-holds a plain count to ``search_scheme_error_count``, and runs a
+holds a plain count to ``search_scheme_error_count``, runs one fused
+pass (``Engine._pass_output``, ``unpack_pass_output``), and runs a
 tiny ``run_pipeline`` (once more at ``-mr 2`` through the device window
 pool) and ``run_pipeline_multihost`` on the CPU.
 It guards against an import chain such as the JAX package's
@@ -46,7 +47,8 @@ SCRIPT = textwrap.dedent(r"""
     from approx_counter_tpu_torch.core.complexity import have_low_complexity
     from approx_counter_tpu_torch.core.ordering import (
         compare_count_keys, compare_count_np, sort_by_compare_count)
-    from approx_counter_tpu_torch.count import exact_count_select
+    from approx_counter_tpu_torch.count import (exact_count_select,
+                                                exact_count_select_rows)
     from approx_counter_tpu_torch.count.approx import approx_count_rank
     from approx_counter_tpu_torch.dist import (approx_counts_sharded,
                                                exact_count_select_sharded,
@@ -66,7 +68,17 @@ SCRIPT = textwrap.dedent(r"""
     assert search_scheme_error_count(list(wins), codes, 4) == {27: 3, 255: 0}
     from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
     from approx_counter_tpu_torch.params import Params
-    from approx_counter_tpu_torch.pipeline import run_pipeline
+    from approx_counter_tpu_torch.pipeline import (
+        Engine, pass_cap, run_pipeline, unpack_pass_output)
+    # one fused pass: its fixed-shape body eagerly, packed and unpacked
+    engine = Engine(Params(k=4, sl=7, limit=3), "cpu")
+    wins_t = torch.from_numpy(np.tile(wins.T, (1, 4)).copy())
+    mask = torch.ones(4, dtype=torch.bool)
+    packed = engine._pass_output(pass_cap(3), wins_t, mask)
+    out = unpack_pass_output(packed, pass_cap(3), 4)
+    assert (int(out["exact"]["n_keep"]), int(out["exact"]["sel_lo"][0]),
+            int(out["approx_count"][0])) == (1, 27, 12), out
+    engine.close()
     tmp = sys.argv[1]
     with open(os.path.join(tmp, "r.fasta"), "w") as f:
         for i in range(6):
