@@ -22,7 +22,8 @@ import sys
 @contextlib.contextmanager
 def profiled(profile_dir: str, device):
     """``torch.profiler`` over the block when ``profile_dir`` is set (CPU
-    activity, and CUDA activity on a CUDA device), its Chrome trace
+    activity on every thread, the engine's worker among them, and CUDA
+    activity on a CUDA device), its Chrome trace
     written on the way out, also when the block raises: to
     ``profile_dir/trace.json``, or ``profile_dir/trace.rank<r>.json`` in a
     process group; a plain block otherwise."""
@@ -39,7 +40,10 @@ def profiled(profile_dir: str, device):
     os.makedirs(profile_dir, exist_ok=True)
     # one recording cycle: acc_events keeps torch from warning that a new
     # cycle would clear the events
-    prof = torch.profiler.profile(activities=activities, acc_events=True)
+    prof = torch.profiler.profile(
+        activities=activities, acc_events=True,
+        experimental_config=torch.profiler._ExperimentalConfig(
+            profile_all_threads=True))
     prof.start()
     try:
         yield

@@ -14,18 +14,20 @@ approx_counter.cpp:487-519, ``get_most_frequent`` :396-405) with torch ops:
      approx_counter.cpp:372-388), every survivor counted ``solid_km`` times
      or more.
 
-Two forms of it.  ``exact_count_select_rows``, the single-device pass's,
-has fixed shapes and no host sync, so a CUDA graph can hold it: every
-position is sorted (invalid ones as code 0, taken out of that code's run
-again), runs are found by a boundary mask and a reverse ``cummin``, and the
-selection is ``cap`` slots with a validity mask; the caller re-runs it at a
-larger ``cap`` when ``n_keep`` outgrows it (the JAX package's cap
-regrowth).  ``exact_count_select`` follows the data's shapes:
-``exact_count_local`` (steps 1-2, ``unique_consecutive`` on the valid
-codes) then ``select_counted`` (steps 3-4); ``dist/mesh.py`` runs the
-first on each rank's windows and the second on the codes each rank owns.
-Everything is a sort or a sum over positions, so the result does not
-depend on the window order.
+Two forms of it.  ``exact_count_select_rows``, the fixed-cap passes',
+has fixed shapes and no host sync, so a CUDA graph can hold it:
+``exact_count_local_rows`` (steps 1-2: every position is sorted, invalid
+ones as code 0, taken out of that code's run again, and runs are found by
+a boundary mask and a reverse ``cummin``), then ``select_counted_rows``
+(steps 3-4 on fixed (code, count) slots: ``cap`` slots with a validity
+mask); the caller re-runs it at a larger ``cap`` when ``n_keep`` outgrows
+it (the JAX package's cap regrowth).  ``dist/mesh.py`` runs the first on
+each rank's windows and the second on the slots each rank owns, their
+counts summed by ``_run_sums``, the same run-length count.
+``exact_count_select`` follows the data's shapes: ``exact_count_local``
+(steps 1-2, ``unique_consecutive`` on the valid codes) then
+``select_counted`` (steps 3-4).  Everything is a sort or a sum over
+positions, so the result does not depend on the window order.
 """
 
 from __future__ import annotations
@@ -36,11 +38,28 @@ from approx_counter_tpu_torch.core.complexity import dimer_sum, max_dimer_sum
 from approx_counter_tpu_torch.core.ordering import _SIGN, compare_count_order
 
 _I64_MAX = (1 << 63) - 1
+#: Above any count of a batch: ``select_counted_rows``'s first top-k key
+#: ranks ``_COUNT_CEIL - count``, non-negative for a count summed over
+#: ranks too.
+_COUNT_CEIL = 1 << 40
 #: Forbidden codes one broadcast compare of ``exact_count_select_rows``
 #: takes: its bool intermediate is P x this.
 FORBID_CHUNK = 16
 #: Rows of ``_suffix_min``'s first level.
 SCAN_ROWS = 1024
+#: Slot granularity of a fixed-cap selection: a regrown cap is ``n_keep``
+#: rounded up to it, as in the JAX package.
+CT = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pass_cap(limit: int) -> int:
+    """A pass's first selection cap, the JAX package's: ``limit`` rounded
+    up to ``CT``, at least 512 and at most 2^20."""
+    return max(512, _round_up(min(limit, 1 << 20), CT))
 
 
 def _positions(windows_t: torch.Tensor, row_mask: torch.Tensor, k: int):
@@ -140,6 +159,8 @@ def _suffix_min(x: torch.Tensor) -> torch.Tensor:
     ms at P = 3,440,000 on an NVIDIA H100 80GB HBM3 at 700 W); rows scan
     in parallel."""
     P = x.shape[0]
+    if P == 0:
+        return x
     cols = -(-P // SCAN_ROWS)
     pad = x.new_full((SCAN_ROWS * cols - P,), _I64_MAX)
     rows = torch.cat([x, pad]).view(SCAN_ROWS, cols).flip(1)
@@ -212,6 +233,95 @@ def _cap_slice(x: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(cap - x.shape[0])])
 
 
+def _run_sums(s: torch.Tensor, weight: torch.Tensor | None = None):
+    """At the first position of each run of equal entries of sorted int64
+    ``s``: the run's length, or with ``weight`` the sum of its entries'
+    weights; 0 at every other position.  Runs end at the next run start, a
+    reverse running minimum (``_suffix_min``), so no shape depends on the
+    data."""
+    P = s.shape[0]
+    idx = torch.arange(P, device=s.device)
+    is_start = torch.ones(P, dtype=torch.bool, device=s.device)
+    is_start[1:] = s[1:] != s[:-1]
+    next_start = torch.empty_like(idx)
+    next_start[:-1] = _suffix_min(torch.where(is_start, idx, P))[1:]
+    next_start[-1:] = P
+    if weight is None:
+        run = next_start - idx
+    else:
+        ends = torch.zeros(P + 1, dtype=torch.int64, device=s.device)
+        ends[1:] = torch.cumsum(weight, 0)
+        run = ends[next_start] - ends[idx]
+    return torch.where(is_start, run, 0)
+
+
+def exact_count_local_rows(windows_t: torch.Tensor, row_mask: torch.Tensor,
+                           k: int):
+    """Steps 1-2 of ``exact_count_select_rows`` in fixed shapes, with no
+    host sync: ``(codes, counts, had_n)``, every position's int64 code in
+    ascending unsigned order, its int64 run count (non-zero only at the
+    first position of a valid k-mer's run), and the number of N-containing
+    k-mers in real windows as a 0-d int64 tensor."""
+    code, valid, had_n = _positions(windows_t, row_mask, k)
+    # Invalid positions sort as code 0 (the all-A k-mer), which comes first
+    # in unsigned order (the sign bit flipped for the signed sort), so they
+    # join the first run, and that run's count drops by how many there are.
+    s = torch.sort(torch.where(valid, code, 0) ^ _SIGN).values ^ _SIGN
+    first = torch.zeros_like(s)
+    first[:1] = code.shape[0] - valid.sum()
+    # the first run may hold invalid positions only: its count is then 0
+    return s, _run_sums(s) - first, had_n
+
+
+def select_counted_rows(
+    codes: torch.Tensor,       # int64 [P] code slots
+    counts: torch.Tensor,      # int64 [P]: each slot's count, 0 if empty
+    k: int,
+    lc_sum_thr: int,           # integer dimer-sum threshold (lc_sum_threshold)
+    forbidden: torch.Tensor,   # int64 [F] codes (F may be 0)
+    limit: int,
+    solid_km: int,
+    cap: int,                  # selection slots (>= the k-mers kept)
+) -> dict:
+    """Steps 3-4 of ``exact_count_select_rows`` on fixed (code, count)
+    slots, each non-empty slot a distinct code: the filters, then the first
+    ``cap`` survivors in CompareCount order (``_topk_rank``, not a sort of
+    every slot, where k <= 16 and the slots outnumber ``2 * cap``).
+    Returns ``sel_codes``, ``sel_counts`` (int64 ``[cap]``), ``sel_valid``
+    (bool ``[cap]``: the first ``n_keep`` slots), and ``n_pass`` and
+    ``n_keep`` as 0-d int64 tensors."""
+    P = codes.shape[0]
+    dev = codes.device
+
+    # --- 3. filters on the non-empty slots ----------------------------------
+    dimer = dimer_sum(codes, k)
+    keep = (counts > 0) & (dimer < lc_sum_thr)
+    for f0 in range(0, forbidden.numel(), FORBID_CHUNK):
+        chunk = forbidden[f0:f0 + FORBID_CHUNK]
+        keep &= ~(codes[:, None] == chunk[None, :]).any(dim=1)
+    count = torch.where(keep, counts, 0)
+    if solid_km > 0:
+        keep &= count >= solid_km
+        count = torch.where(keep, count, 0)
+    n_pass = keep.sum()
+
+    # --- 4. CompareCount top-cap --------------------------------------------
+    # (count desc, dimer asc) in one key; the code, descending unsigned, in
+    # a second (``~(code ^ sign)``).  Every slot that did not pass has
+    # count 0 and so ranks after every one that did.
+    if k <= 16 and P > 2 * cap:
+        key1 = ((_COUNT_CEIL - count) << max_dimer_sum(k).bit_length()) | dimer
+        top = _topk_rank(key1, ~(codes ^ _SIGN), cap)
+    else:
+        top = compare_count_order(codes, count, k, keep, dimer)[:cap]
+    sel_codes = _cap_slice(codes[top], cap)
+    sel_counts = _cap_slice(count[top], cap)
+    n_keep = n_pass if solid_km > 0 else n_pass.clamp(max=limit)
+    sel_valid = (torch.arange(cap, device=dev) < n_keep) & (sel_counts > 0)
+    return dict(sel_codes=sel_codes, sel_counts=sel_counts,
+                sel_valid=sel_valid, n_pass=n_pass, n_keep=n_keep)
+
+
 def exact_count_select_rows(
     windows_t: torch.Tensor,   # uint8 [m, n]: text-major window batch
     row_mask: torch.Tensor,    # bool [n]: which windows are real
@@ -230,53 +340,9 @@ def exact_count_select_rows(
     slots), and ``n_unique``, ``n_pass``, ``n_keep`` (``n_pass`` in solid
     mode, else at most ``limit``) and ``had_n`` as 0-d int64 tensors.
     Slots past ``n_keep`` hold whatever ranks there; ``n_keep > cap``
-    means the caller must run it again at a larger ``cap``."""
-    code, valid, had_n = _positions(windows_t, row_mask, k)
-    P = code.shape[0]
-    dev = code.device
-
-    # --- 2. sort + run-length count -----------------------------------------
-    # Invalid positions sort as code 0 (the all-A k-mer), which comes first
-    # in unsigned order (the sign bit flipped for the signed sort), so they
-    # join the first run, and that run's count drops by how many there are.
-    s = torch.sort(torch.where(valid, code, 0) ^ _SIGN).values ^ _SIGN
-    idx = torch.arange(P, device=dev)
-    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          s[1:] != s[:-1]])
-    # the next run's start after each position: a reverse running minimum
-    next_start = torch.cat([_suffix_min(torch.where(is_start, idx, P))[1:],
-                            idx.new_full((1,), P)])
-    n_invalid = P - valid.sum()
-    run_count = next_start - idx - torch.where(idx == 0, n_invalid, 0)
-    is_start &= run_count > 0  # the first run may hold invalid positions only
-    n_unique = is_start.sum()
-
-    # --- 3. filters on the run starts ---------------------------------------
-    dimer = dimer_sum(s, k)
-    keep = is_start & (dimer < lc_sum_thr)
-    for f0 in range(0, forbidden.numel(), FORBID_CHUNK):
-        chunk = forbidden[f0:f0 + FORBID_CHUNK]
-        keep &= ~(s[:, None] == chunk[None, :]).any(dim=1)
-    count = torch.where(keep, run_count, 0)
-    if solid_km > 0:
-        keep &= count >= solid_km
-        count = torch.where(keep, count, 0)
-    n_pass = keep.sum()
-
-    # --- 4. CompareCount top-cap --------------------------------------------
-    # (count desc, dimer asc) in one key; the code, descending unsigned, in
-    # a second (``~(code ^ sign)``).  Every position that did not pass (a
-    # filtered run start, any other position of a run) has count 0 and so
-    # ranks after every one that did.
-    if k <= 16 and P > 2 * cap:
-        key1 = ((P - count) << max_dimer_sum(k).bit_length()) | dimer
-        top = _topk_rank(key1, ~(s ^ _SIGN), cap)
-    else:
-        top = compare_count_order(s, count, k, keep, dimer)[:cap]
-    sel_codes = _cap_slice(s[top], cap)
-    sel_counts = _cap_slice(count[top], cap)
-    n_keep = n_pass if solid_km > 0 else n_pass.clamp(max=limit)
-    sel_valid = (torch.arange(cap, device=dev) < n_keep) & (sel_counts > 0)
-    return dict(sel_codes=sel_codes, sel_counts=sel_counts,
-                sel_valid=sel_valid, n_unique=n_unique, n_pass=n_pass,
-                n_keep=n_keep, had_n=had_n)
+    means the caller must run it again at a larger ``cap``:
+    ``exact_count_local_rows`` then ``select_counted_rows``."""
+    codes, counts, had_n = exact_count_local_rows(windows_t, row_mask, k)
+    out = select_counted_rows(codes, counts, k, lc_sum_thr, forbidden, limit,
+                              solid_km, cap)
+    return dict(out, n_unique=(counts > 0).sum(), had_n=had_n)

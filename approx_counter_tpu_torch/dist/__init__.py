@@ -4,13 +4,13 @@ with an all-reduce, and the ``--multihost`` orchestrator).
 
 The JAX package's ``data_mesh`` and ``shard_windows`` place arrays on a
 device mesh; here ``initialize`` joins the process group and
-``gather_windows`` all-gathers the ranks' window batches.  The exact stage
-of ``make_full_step`` is ``exact_count_select_sharded``: each rank counts
-its own windows and each code is selected on its owner rank."""
+``gather_windows`` all-gathers the ranks' window batches.
+``make_full_step`` is a sharded engine's pass (``Engine(sharded=True)``,
+the fixed-cap segments of ``dist/mesh.py``): each rank counts its own
+windows and each code is selected on its owner rank."""
 
 from approx_counter_tpu_torch.dist.mesh import (  # noqa: F401
     approx_counts_sharded,
-    exact_count_select_sharded,
     gather_windows,
     initialize,
 )

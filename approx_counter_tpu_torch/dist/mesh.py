@@ -5,22 +5,34 @@ The JAX package shards the sampled windows along a device mesh, replicates
 the candidates, scores each shard with its Pallas kernel under
 ``shard_map`` and merges the per-candidate counts with a ``psum``; its
 exact stage runs under XLA's auto-SPMD, whose sort and run-length count
-lower to a distributed sort.  Here a rank is one process on one card (or on
-the CPU), and each rank reads only its own windows:
+lower to a distributed sort.  ``make_full_step`` jits all of it as one
+program per cap, and its orchestrator reruns it at a larger cap when ``n_keep``
+outgrows the cap.  Here a rank is one process on one card (or on the
+CPU), and each rank reads only its own windows.  The step has fixed
+shapes, in three segments with a collective between each pair:
 
-  * ``exact_count_select_sharded`` counts this rank's windows
-    (``count/exact.py:exact_count_local``), sends each unique code and its
-    count to the code's owner rank (``owner_rank``, a hash of the code) in
-    an ``all_to_all_single``, sums and filters on the owner
-    (``select_counted``), and all-gathers the owners' selections, which
-    every rank cuts to the same global one;
-  * ``approx_counts_sharded`` scores this rank's window shard with
-    ``kernels/bpm.py:approx_counts`` (the ``csrc/nfa_sliced.cu`` kernel on
-    a CUDA tensor) and sums the int32 counts of every rank with an
-    ``all_reduce`` on the device tensor;
-  * ``full_step`` is ``Engine.count_one_end`` on an engine built with both
-    (``dist/multihost.py``).  The ``--from-exact`` step is
-    ``Engine.approx_stage`` of the same engine.
+  A. ``local_segment``: ``count/exact.py:exact_count_local_rows`` on this
+     rank's windows, each run start dealt to its ``owner_rank`` (a hash of
+     the code) in a ``[n_ranks, B]`` bucket of (code, count) slots;
+  *  one ``all_to_all_single`` of the buckets (``exchange``);
+  B. ``owner_segment``: the owner sorts the ``n_ranks * B`` slots it got,
+     sums the counts of equal codes and keeps its first ``cap``
+     (``select_counted_rows``);
+  *  one ``all_gather`` of the owners' selections (``gather``);
+  C. ``merge_owned``: every rank cuts the ``n_ranks * cap`` slots to the
+     same first ``cap``; then the approximate counts of that selection
+     over this rank's windows, summed with an ``all_reduce``, and the
+     re-rank.
+
+A bucket that would hold more than ``B`` codes sets an overflow flag, and
+``n_keep > cap`` outgrows the selection: ``next_sizes`` decides the rerun
+(``B`` doubled, or ``cap`` regrown as the JAX orchestrator regrows it) from
+numbers every rank holds alike, so every rank issues the same
+collectives.  ``Engine`` (``pipeline.py``) captures each segment as a
+CUDA graph and issues the collectives between the replays, on a process
+group of their own (``pass_group``).  ``approx_counts_sharded`` is the
+eager approximate count: the ``csrc/nfa_sliced.cu`` kernel on a CUDA
+tensor, then an ``all_reduce``.
 
 The collectives take the device tensors as they are.  With a card per rank
 they run over NCCL on the cards; ranks sharing a card run over gloo, which
@@ -29,24 +41,27 @@ backend).
 Counting is order-independent, each code is summed on exactly one owner and
 every window is scored on exactly one rank, so the result does not depend
 on the number of ranks.  At one rank, or with no process group, no
-collective runs.  Torch shapes are dynamic, so the JAX step's cap and its
-regrowth have no counterpart.
+collective runs: the engine runs the single-device fused pass, which is
+``make_full_step`` on one device.
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from approx_counter_tpu_torch.core.ordering import compare_count_order
+from approx_counter_tpu_torch.core.ordering import _SIGN, compare_count_order
 from approx_counter_tpu_torch.count.exact import (
-    exact_count_local,
-    exact_count_select,
-    select_counted,
+    CT,
+    _round_up,
+    _run_sums,
+    exact_count_local_rows,
+    select_counted_rows,
 )
 from approx_counter_tpu_torch.dist.sampling import _allgather_rows
 from approx_counter_tpu_torch.kernels.bpm import MAXERR, approx_counts
@@ -120,6 +135,24 @@ def initialize(coordinator_address: str | None = None,
     dist.init_process_group(backend, **kwargs)
 
 
+#: (default group, the passes' group) of this process: see ``pass_group``
+_PASS_GROUP: list = [None, None]
+
+
+def pass_group():
+    """The process group of the counting passes' collectives: a group of
+    their own beside the default one, on which the caller's thread runs
+    the sampling and flag all-gathers while a pass counts on the engine's
+    worker thread, so that the two threads' collectives never interleave.
+    It is made once for each default group (the first sharded engine does
+    it, on every rank at the same point) and kept: an NCCL group sets up
+    its communicator at its first collective, which takes seconds."""
+    world = dist.group.WORLD
+    if _PASS_GROUP[0] is not world:
+        _PASS_GROUP[:] = [world, dist.new_group()]
+    return _PASS_GROUP[1]
+
+
 def approx_counts_sharded(peq: torch.Tensor, windows_t: torch.Tensor,
                           window_valid: torch.Tensor, k: int,
                           maxerr: int = MAXERR) -> torch.Tensor:
@@ -162,117 +195,171 @@ def owner_rank(codes: torch.Tensor, n_ranks: int) -> torch.Tensor:
     return h % n_ranks
 
 
-def _all_gather_rows(t: torch.Tensor, width: int, lengths: list):
-    """1-D ``t`` from every rank, rank after rank: padded to ``width`` (the
-    longest) for an ``all_gather``, then trimmed to each rank's
-    ``lengths[r]``.  The list form of ``all_gather``: torch 2.13
+#: The statistics each owner's gathered row carries after its ``cap``
+#: codes and counts: its distinct codes and survivors, then the totals of
+#: every rank's N-containing k-mers and bucket overflow (equal on every
+#: owner), and this rank's run starts and those it sent to other ranks.
+STATS = ("n_unique", "n_pass", "had_n", "overflow", "local", "sent")
+#: a bucket row's columns after its B codes and B counts (every row alike)
+_SEND_STATS = ("overflow", "had_n", "local", "sent")
+
+
+def bucket_slots(positions: int, n_ranks: int) -> int:
+    """A bucket's first size: a rank's ``positions`` over the ranks plus
+    four times their square root, rounded up to ``CT``.  An owner's share
+    of a rank's distinct codes has a standard deviation of at most half
+    that root, so the margin is eight of them."""
+    return _round_up(-(-positions // n_ranks) + 4 * math.isqrt(positions),
+                     CT) or CT
+
+
+def bucket_max(positions: int) -> int:
+    """The bucket size no rank can overflow: every position of a rank."""
+    return max(_round_up(positions, CT), CT)
+
+
+def next_sizes(overflow: bool, n_keep: int, cap: int, bucket: int,
+               positions: int):
+    """The ``(cap, bucket)`` to run the step again at, or None when this
+    run's result stands: a bucket overflow doubles the bucket (up to
+    ``bucket_max``), then an ``n_keep`` above ``cap`` regrows the cap to
+    ``n_keep`` rounded up to ``CT``."""
+    if overflow:
+        return cap, min(2 * bucket, bucket_max(positions))
+    if n_keep > cap:
+        return _round_up(n_keep, CT), bucket
+    return None
+
+
+def agreed_positions(shape, k: int) -> int:
+    """The most sliding positions, ``(m - k + 1) * n``, of any rank's
+    ``[n, m]`` batch, from an all-gather of each rank's count on the
+    default group: every rank sizes its buckets from it, so their
+    ``all_to_all_single`` splits agree."""
+    n, m = shape
+    local = np.array([max(m - k + 1, 0) * n], np.int64)
+    return int(_allgather_rows(local).max())
+
+
+def local_segment(windows_t: torch.Tensor, row_mask: torch.Tensor, k: int,
+                  n_ranks: int, bucket: int, me: int) -> torch.Tensor:
+    """Segment A: this rank's windows (uint8 ``[m, n]``, bool row mask
+    ``[n]``) counted (``exact_count_local_rows``) and dealt to their
+    owners: int64 ``[n_ranks, 2 * bucket + 4]``, row r the first ``bucket``
+    run starts owned by rank r (codes, then counts; unused slots code 0,
+    count 0), then ``_SEND_STATS``: whether any owner got more than
+    ``bucket``, this rank's N-containing k-mers, its run starts and those
+    owned by another rank.  No host sync."""
+    codes, counts, had_n = exact_count_local_rows(windows_t, row_mask, k)
+    start = counts > 0
+    owner = owner_rank(codes, n_ranks)
+    dump = n_ranks * bucket  # one slot past the buckets takes the rest
+    slot = torch.full_like(codes, dump)
+    sizes = []
+    for r in range(n_ranks):
+        mine = start & (owner == r)
+        pos = torch.cumsum(mine, 0) - 1
+        slot = torch.where(mine & (pos < bucket), r * bucket + pos, slot)
+        sizes.append(mine.sum())
+    sizes = torch.stack(sizes)
+    flat = codes.new_zeros((2, dump + 1))
+    flat[0].scatter_(0, slot, codes)
+    flat[1].scatter_(0, slot, counts)
+    send = codes.new_empty((n_ranks, 2 * bucket + len(_SEND_STATS)))
+    send[:, :2 * bucket] = flat[:, :dump].view(2, n_ranks, bucket).transpose(
+        0, 1).reshape(n_ranks, 2 * bucket)
+    local = sizes.sum()
+    send[:, 2 * bucket:] = torch.stack([(sizes > bucket).long().max(), had_n,
+                                        local, local - sizes[me]])
+    return send
+
+
+def owner_segment(recv: torch.Tensor, k: int, lc_sum_thr: int,
+                  forbidden: torch.Tensor, limit: int, solid_km: int,
+                  cap: int, me: int) -> torch.Tensor:
+    """Segment B: the ``[n_ranks, 2 * bucket + 4]`` buckets this rank got
+    (``local_segment``'s rows for it) -> this owner's row, int64
+    ``[2 * cap + len(STATS)]``: its first ``cap`` codes in CompareCount
+    order and their counts (0 past its ``n_keep``), then ``STATS``.  The
+    slots are sorted, equal codes' counts summed (``_run_sums``) and
+    selected by ``select_counted_rows``.  No host sync."""
+    bucket = (recv.shape[1] - len(_SEND_STATS)) // 2
+    s, order = torch.sort(recv[:, :bucket].reshape(-1) ^ _SIGN)
+    s = s ^ _SIGN
+    summed = _run_sums(s, recv[:, bucket:2 * bucket].reshape(-1)[order])
+    sel = select_counted_rows(s, summed, k, lc_sum_thr, forbidden, limit,
+                              solid_km, cap)
+    tail = recv[:, 2 * bucket:]
+    stats = torch.stack([(summed > 0).sum(), sel["n_pass"], tail[:, 1].sum(),
+                         tail[:, 0].max(), tail[me, 2], tail[me, 3]])
+    return torch.cat([sel["sel_codes"],
+                      torch.where(sel["sel_valid"], sel["sel_counts"], 0),
+                      stats])
+
+
+def merge_owned(gathered: torch.Tensor, k: int, limit: int, solid_km: int,
+                cap: int):
+    """Segment C's start: every owner's row (``[n_ranks, 2 * cap +
+    len(STATS)]``) -> ``(ex, stats)``: ``ex`` as ``exact_count_select_rows``
+    returns it for the union of every rank's windows (the first ``cap``
+    codes in CompareCount order of the owners' selections, the totals) and
+    ``stats`` the ``[n_ranks, len(STATS)]`` block.  CompareCount is a
+    total order on distinct codes and each code lives on one owner, so the
+    global first ``cap`` are among the owners' first ``cap``.  No host
+    sync."""
+    codes = gathered[:, :cap].reshape(-1)
+    counts = gathered[:, cap:2 * cap].reshape(-1)
+    stats = gathered[:, 2 * cap:]
+    top = compare_count_order(codes, counts, k, counts > 0)[:cap]
+    sel_codes, sel_counts = codes[top], counts[top]
+    n_pass = stats[:, 1].sum()
+    n_keep = n_pass if solid_km > 0 else n_pass.clamp(max=limit)
+    sel_valid = ((torch.arange(cap, device=codes.device) < n_keep)
+                 & (sel_counts > 0))
+    ex = dict(sel_codes=sel_codes, sel_counts=sel_counts, sel_valid=sel_valid,
+              n_unique=stats[:, 0].sum(), n_pass=n_pass, n_keep=n_keep,
+              had_n=stats[0, 2])
+    return ex, stats
+
+
+def exchange(send: torch.Tensor, group=None) -> torch.Tensor:
+    """Row r of ``send`` to rank r, in one ``all_to_all_single`` of equal
+    splits: row r of the result came from rank r."""
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv
+
+
+def gather(row: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``row``, rank after rank, as ``[n_ranks, len(row)]``.
+    The list form of ``all_gather`` (views of one tensor): torch 2.13
     deprecates ``all_gather_into_tensor`` with a warning on stderr."""
-    padded = t.new_zeros(width)
-    padded[:t.numel()] = t
-    parts = [torch.empty_like(padded) for _ in lengths]
-    dist.all_gather(parts, padded)
-    return torch.cat([p[:c] for p, c in zip(parts, lengths)])
+    out = row.new_empty((dist.get_world_size(group), row.numel()))
+    dist.all_gather(list(out.unbind(0)), row, group=group)
+    return out
 
 
-def exact_count_select_sharded(
-    windows_t: torch.Tensor,   # uint8 [m, n]: this rank's windows
-    row_mask: torch.Tensor,    # bool [n]: which of them are real
-    k: int,
-    lc_sum_thr: int,
-    forbidden: torch.Tensor,   # int64 [F] codes (F may be 0)
-    limit: int,
-    solid_km: int = 0,
-) -> dict:
-    """``exact_count_select`` of the union of every rank's windows, each
-    rank reading only its own: the same dict, equal on every rank.
-
-    1. ``exact local``: ``exact_count_local`` on this rank's windows;
-    2. ``exact exchange``: each unique code goes with its count to its
-       ``owner_rank``: the split sizes in one ``all_to_all_single`` (one
-       host sync), then the codes and the counts, int64 each, in one each;
-    3. ``exact owner``: the owner sorts what it received, sums the counts
-       of equal codes and selects (``select_counted``: DUST and the
-       forbidden list read the code, the solid threshold the summed
-       count): its top ``limit`` in CompareCount order, or in solid mode
-       every survivor;
-    4. ``exact gather``: the owners' selections are all-gathered (lengths
-       first, then padded to the longest), put in CompareCount order and
-       cut to ``limit`` (solid mode: kept whole), and ``had_n``,
-       ``n_unique`` and ``n_pass`` are summed in one ``all_reduce``.
-
-    CompareCount is a total order on distinct codes and each code lives
-    on one owner, so the global first ``limit`` are among the owners'
-    first ``limit``.  Each call appends this rank's traffic (codes sent
-    to other ranks, codes owned, entries gathered) to
-    ``exact_count_select_sharded.traffic``.  At one rank, or with no
-    process group, it is ``exact_count_select``."""
-    n_ranks = process_count()
-    if n_ranks == 1:
-        return exact_count_select(windows_t, row_mask, k, lc_sum_thr,
-                                  forbidden, limit, solid_km)
-    me = process_index()
-    record = torch.profiler.record_function
-    with record("exact local"):
-        codes, counts, had_n = exact_count_local(windows_t, row_mask, k)
-        owner = owner_rank(codes, n_ranks)
-        by_owner = torch.sort(owner, stable=True).indices
-        codes, counts = codes[by_owner], counts[by_owner]
-        send = torch.bincount(owner, minlength=n_ranks)
-    with record("exact exchange"):
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
-        send_sizes, recv_sizes = torch.stack([send, recv]).tolist()
-        got_codes = codes.new_empty(sum(recv_sizes))
-        got_counts = counts.new_empty(sum(recv_sizes))
-        dist.all_to_all_single(got_codes, codes, recv_sizes, send_sizes)
-        dist.all_to_all_single(got_counts, counts, recv_sizes, send_sizes)
-    with record("exact owner"):
-        got_codes, order = torch.sort(got_codes)
-        owned, inverse = torch.unique_consecutive(got_codes,
-                                                  return_inverse=True)
-        summed = torch.zeros_like(owned).index_add_(0, inverse,
-                                                    got_counts[order])
-        sel = select_counted(owned, summed, k, lc_sum_thr, forbidden, limit,
-                             solid_km)
-    with record("exact gather"):
-        lengths = send.new_tensor([sel["n_keep"]])
-        parts = [torch.empty_like(lengths) for _ in range(n_ranks)]
-        dist.all_gather(parts, lengths)
-        lengths = torch.cat(parts).tolist()
-        width = max(lengths)
-        all_codes = all_counts = sel["sel_codes"]
-        if width:
-            all_codes = _all_gather_rows(sel["sel_codes"], width, lengths)
-            all_counts = _all_gather_rows(sel["sel_counts"], width, lengths)
-        totals = torch.stack([had_n, had_n.new_tensor(owned.numel()),
-                              had_n.new_tensor(sel["n_pass"])])
-        dist.all_reduce(totals)
-        had_n, n_unique, n_pass = totals.tolist()
-        n_keep = n_pass if solid_km > 0 else min(n_pass, limit)
-        order = compare_count_order(all_codes, all_counts, k)[:n_keep]
-    exact_count_select_sharded.traffic.append(dict(
-        rank=me, local=codes.numel(),
-        sent=codes.numel() - send_sizes[me], owned=owned.numel(),
-        gathered=width * n_ranks))
-    return dict(sel_codes=all_codes[order], sel_counts=all_counts[order],
-                n_unique=n_unique, n_pass=n_pass, n_keep=n_keep,
-                had_n=had_n)
-
-
-exact_count_select_sharded.traffic = []
+def traffic_report(me: int, stats: np.ndarray, sizes: list) -> dict:
+    """This rank's traffic in a sharded pass's last run, from the fetched
+    ``[n_ranks, len(STATS)]`` block: its run starts, those it sent to
+    other ranks, the codes it owned, the bucket and cap, every ``(cap,
+    bucket)`` the step ran at, and the survivors of every owner's
+    filters."""
+    row = dict(zip(STATS, (int(x) for x in stats[me])))
+    return dict(rank=me, local=row["local"], sent=row["sent"],
+                owned=row["n_unique"], cap=sizes[-1][0], bucket=sizes[-1][1],
+                sizes=[list(x) for x in sizes],
+                n_pass=int(stats[:, STATS.index("n_pass")].sum()))
 
 
 def full_step(engine, windows: np.ndarray, n_valid: int):
     """One end across the ranks (port of ``make_full_step``):
     ``(exact_sel, approx_sel, stats)`` as ``Engine.count_one_end`` gives
-    them, the same on every rank.  ``engine`` counts with
-    ``exact_count_select_sharded`` and scores with
-    ``approx_counts_sharded``; ``windows`` is this rank's padded shard, the
-    only windows the rank uploads.
-
-    1. exact count of this rank's windows, each code summed and selected
-       on its owner rank, the selections gathered and cut on every rank;
-    2. approximate counts of the selection over this rank's shard,
-       all-reduced;
-    3. CompareCount re-rank (``rank_with_zero_counts``)."""
+    them, the same on every rank.  ``engine`` is built with
+    ``sharded=True``; ``windows`` is this rank's padded shard, the only
+    windows the rank uploads.  The engine runs segments A, B and C above
+    as CUDA graphs (eagerly on the CPU) with the three collectives between
+    them on the passes' own process group (``pass_group``), fetches one
+    packed vector, and reruns at the sizes ``next_sizes`` gives; at one
+    rank it runs the single-device fused pass."""
     return engine.count_one_end(windows, n_valid)

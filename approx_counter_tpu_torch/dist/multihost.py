@@ -11,21 +11,27 @@ program:
   3. each rank streams its shard through the distributed bottom-k sampler
      (``dist/sampling.py``): a uniform min(sn, N_eligible)-subset of the
      union of eligible reads, whatever the shard sizes;
-  4. ``dist/mesh.py:full_step`` counts each end: each rank counts its own
-     windows exactly, each code is summed and selected on its owner rank
-     and the selections gathered; the approximate counts over this rank's
-     windows with an all-reduce; the selections and rankings are the same
-     on every rank;
-  5. rank 0 logs, warns and exports, with the single-device pipeline's log
-     lines, warnings, ``--compat-quirks`` and ``--from-exact``.
+  4. both ends of the run are dispatched before either is fetched, as the
+     JAX orchestrator dispatches them: each is one pass of a sharded engine
+     (``Engine(sharded=True)``, the fixed-cap step of ``dist/mesh.py``:
+     each rank counts its own windows exactly, each code is summed and
+     selected on its owner rank and the selections gathered; the
+     approximate counts over this rank's windows with an all-reduce) on
+     the engine's worker thread and the passes' own process group; the
+     selections and rankings are the same on every rank;
+  5. each end is fetched in turn, and rank 0 logs, warns and exports, with
+     the single-device pipeline's log lines, warnings, ``--compat-quirks``
+     and ``--from-exact``, while the next end counts.
 
 The output equals the JAX package's multihost run on the same shards, seed
 and rank count, byte for byte; at one rank it is a one-rank run.  The
 divergences of the JAX orchestrator from the single-device pipeline
 (COMPAT.md, "Multihost divergences" M1-M5) are kept: the per-rank seeds,
 rank 0's output alone, always streaming, and the ``(pipelined)`` tag of the
-v >= 2 ``[stats]`` line, although the port runs its two ends one after the
-other.
+v >= 2 ``[stats]`` line.  A rank that stops early (an export failure on
+rank 0, which every rank learns from a flag all-gather) still waits for
+its pass in flight in ``Engine.close``, so no rank leaves a collective
+half done.
 """
 
 from __future__ import annotations
@@ -36,13 +42,7 @@ import time
 import numpy as np
 import torch
 
-from approx_counter_tpu_torch.dist.mesh import (
-    approx_counts_sharded,
-    exact_count_select_sharded,
-    full_step,
-    process_count,
-    process_index,
-)
+from approx_counter_tpu_torch.dist.mesh import process_count, process_index
 from approx_counter_tpu_torch.dist.sampling import (
     _allgather_rows,
     distributed_sample_windows,
@@ -95,8 +95,6 @@ def run_pipeline_multihost(prm, log: Log | None = None, *, device) -> int:
     if v > 0 and prm.nb_of_runs > 1:
         print(f"\nA total of {prm.nb_of_runs} runs will be performed.")
 
-    engine = Engine(prm, device, counts=approx_counts_sharded,
-                    exact=exact_count_select_sharded)
     my_paths = shard_paths(prm.input_file.split(","), pi, pc)
 
     # priority streams must differ per rank (independent uniform keys)
@@ -119,87 +117,101 @@ def run_pipeline_multihost(prm, log: Log | None = None, *, device) -> int:
     runs_end_pass = (not prm.skip_end) or (prm.compat_quirks and
                                            prm.mr_v == 0)
     quirk_end_is_start = prm.skip_end and runs_end_pass
+    ends = ("start", "end") if runs_end_pass else ("start",)
 
-    for current_run in range(prm.nb_of_runs):
-        run_suffix = f"_{current_run}"
-        if prm.nb_of_runs > 1 and v > 0:
-            print(f"Starting run number {current_run + 1}")
+    engine = Engine(prm, device, sharded=True)
+    try:
+        for current_run in range(prm.nb_of_runs):
+            run_suffix = f"_{current_run}"
+            if prm.nb_of_runs > 1 and v > 0:
+                print(f"Starting run number {current_run + 1}")
 
-        if mr_v > 0:
-            log("Streaming pass (reservoir sampling both ends)", tab_level)
-        t_stream = time.perf_counter()
-        b_start, b_end, n_reads, g_counts = distributed_sample_windows(
-            my_paths, sn, prm.sl, rng=rng, process_count=pc,
-            process_index=pi, end_is_start=quirk_end_is_start, v=mr_v,
-        )
-        t_stream = time.perf_counter() - t_stream
-        batches = {"start": (b_start, g_counts[0]),
-                   "end": (b_end, g_counts[1])}
-        if v > 0 and current_run == 0:
-            log(f"Number of sequences found: {n_reads}.", tab_level)
+            if mr_v > 0:
+                log("Streaming pass (reservoir sampling both ends)",
+                    tab_level)
+            t_stream = time.perf_counter()
+            b_start, b_end, n_reads, g_counts = distributed_sample_windows(
+                my_paths, sn, prm.sl, rng=rng, process_count=pc,
+                process_index=pi, end_is_start=quirk_end_is_start, v=mr_v,
+            )
+            t_stream = time.perf_counter() - t_stream
+            batches = {"start": (b_start, g_counts[0]),
+                       "end": (b_end, g_counts[1])}
+            if v > 0 and current_run == 0:
+                log(f"Number of sequences found: {n_reads}.", tab_level)
 
-        if sn > n_reads:  # clamp-by-mutation quirk (:844-848)
-            if is_host0:
-                warn("Sequence set too small for the requested sample size")
-                warn("The whole set will be used.")
-            sn = n_reads
+            if sn > n_reads:  # clamp-by-mutation quirk (:844-848)
+                if is_host0:
+                    warn("Sequence set too small for the requested sample "
+                         "size")
+                    warn("The whole set will be used.")
+                sn = n_reads
 
-        tab_level += 1
-        for which_end in ("start", "end"):
-            with torch.profiler.record_function(f"{which_end} pass"):
-                bottom = which_end == "end" and not quirk_end_is_start
-                if v > 0:
-                    log(f"Working on sequence {which_end}.", tab_level - 1)
-                if mr_v > 0:
-                    log("Sampling", tab_level)
-                    log("Sampling the ends of reads" if bottom
-                        else "Sampling the start of reads", tab_level)
-                batch, g_n = batches[which_end]
-                if mr_v > 0:
-                    log(f"Sampled {g_n} sequences", tab_level)
-                    log("Exact k-mer count", tab_level)
-                t_count = time.perf_counter()
-                if resume_codes is not None:
-                    # the --from-exact step: the codes scored over every
-                    # rank's windows (engine.counts all-reduces), no exact
-                    # stage
-                    approx_sel = engine.approx_stage(
-                        batch.windows, batch.n_valid, resume_codes)
-                    exact_sel = (resume_codes,
-                                 np.zeros(len(resume_codes), np.uint64))
-                    stats = dict(n_unique=len(resume_codes),
-                                 n_keep=len(resume_codes), had_n=0)
-                else:
-                    exact_sel, approx_sel, stats = full_step(
-                        engine, batch.windows, batch.n_valid)
-                t_count = time.perf_counter() - t_count
-                if mr_v >= 2:
-                    pairs = stats["n_keep"] * g_n
-                    log(
-                        f"[stats] sample {t_stream * 1e3:.1f} ms | "
-                        f"count+score {t_count * 1e3:.1f} ms (pipelined) | "
-                        f"{g_n / max(t_count, 1e-9):.0f} windows/s | "
-                        f"{pairs / max(t_count, 1e-9):.3g} pairs/s",
-                        tab_level,
+            # both ends in flight before either fetch (the JAX orchestrator's
+            # dispatch phase): the end pass counts while the start pass is
+            # fetched, reported and exported
+            pending = {end: engine.start_pass(batches[end][0].windows,
+                                              batches[end][0].n_valid,
+                                              codes=resume_codes)
+                       for end in ends}
+
+            tab_level += 1
+            for which_end in ends:
+                with torch.profiler.record_function(f"{which_end} pass"):
+                    bottom = which_end == "end" and not quirk_end_is_start
+                    if v > 0:
+                        log(f"Working on sequence {which_end}.",
+                            tab_level - 1)
+                    if mr_v > 0:
+                        log("Sampling", tab_level)
+                        log("Sampling the ends of reads" if bottom
+                            else "Sampling the start of reads", tab_level)
+                    g_n = batches[which_end][1]
+                    if mr_v > 0:
+                        log(f"Sampled {g_n} sequences", tab_level)
+                        log("Exact k-mer count", tab_level)
+                    t_count = time.perf_counter()
+                    if resume_codes is not None:
+                        # the --from-exact step: the codes scored over
+                        # every rank's windows, no exact stage
+                        approx_sel = pending[which_end].finish()
+                        exact_sel = (resume_codes,
+                                     np.zeros(len(resume_codes), np.uint64))
+                        stats = dict(n_unique=len(resume_codes),
+                                     n_keep=len(resume_codes), had_n=0)
+                    else:
+                        exact_sel, approx_sel, stats = (
+                            pending[which_end].finish())
+                    t_count = time.perf_counter() - t_count
+                    if mr_v >= 2:
+                        pairs = stats["n_keep"] * g_n
+                        log(
+                            f"[stats] sample {t_stream * 1e3:.1f} ms | "
+                            f"count+score {t_count * 1e3:.1f} ms "
+                            f"(pipelined) | "
+                            f"{g_n / max(t_count, 1e-9):.0f} windows/s | "
+                            f"{pairs / max(t_count, 1e-9):.3g} pairs/s",
+                            tab_level,
+                        )
+                    ok = report_and_export_end(
+                        prm, log, mr_v, tab_level, run_suffix, which_end,
+                        stats, exact_sel, approx_sel,
+                        resume=resume_codes is not None, is_host0=is_host0,
                     )
-                ok = report_and_export_end(
-                    prm, log, mr_v, tab_level, run_suffix, which_end, stats,
-                    exact_sel, approx_sel, resume=resume_codes is not None,
-                    is_host0=is_host0,
-                )
-            if pc > 1:
-                # only rank 0 can fail an export; every rank must take the
-                # SAME return path or the others deadlock on the next
-                # collective -- one tiny flag all-gather per end
-                ok = not bool(_allgather_rows(
-                    np.array([0 if ok else 1], np.int64)).max())
-            if not ok:
-                return 1
+                if pc > 1:
+                    # only rank 0 can fail an export; every rank must take
+                    # the SAME return path or the others deadlock on the
+                    # next collective -- one tiny flag all-gather per end
+                    ok = not bool(_allgather_rows(
+                        np.array([0 if ok else 1], np.int64)).max())
+                if not ok:
+                    return 1
 
-            if prm.skip_end:
-                if mr_v > 0:
+                if prm.skip_end and mr_v > 0:
                     log("Skipping end adapter ressearch")
-                if not runs_end_pass:
-                    break
-        tab_level -= 1
-    return 0
+            tab_level -= 1
+        return 0
+    finally:
+        # a pass still in flight (the end pass after a failed start
+        # export) runs to its end on every rank before the engine goes
+        engine.close()

@@ -66,11 +66,7 @@ from approx_counter_tpu_torch.core.complexity import (
     lc_sum_threshold,
 )
 from approx_counter_tpu_torch.count.exact import exact_count_select
-from approx_counter_tpu_torch.dist.mesh import (
-    approx_counts_sharded,
-    exact_count_select_sharded,
-    full_step,
-)
+from approx_counter_tpu_torch.dist.mesh import full_step
 from approx_counter_tpu_torch.io.fastx import Reads
 from approx_counter_tpu_torch.kernels.bpm import (
     approx_counts,
@@ -264,9 +260,9 @@ def _resume_row(rng, device) -> tuple[str, bool]:
 
 def _mesh_step_row(rng, device) -> tuple[str, bool]:
     """``dist/mesh.py:full_step`` at world size 1: the multihost
-    orchestrator's step (exact stage through ``exact_count_select_sharded``,
-    counts through ``approx_counts_sharded``, re-rank)
-    on 121 valid rows of 512, against the oracle."""
+    orchestrator's step (an engine built with ``sharded=True``, which at
+    one rank runs the fused pass) on 121 valid rows of 512, against the
+    oracle."""
     k, sl, n_valid, limit = 8, 24, 121, 37
     wins, texts = _pass_windows(rng, k, sl, 512, n_valid)
     counter, _ = oracle_count_kmers(texts, k, adjust_threshold(1.0, 16, k),
@@ -275,8 +271,7 @@ def _mesh_step_row(rng, device) -> tuple[str, bool]:
     ranked = oracle_sort_compare_count(
         oracle_error_count(texts, [c for c, _ in sel], k), k)[:limit]
     engine = Engine(Params(k=k, sl=sl, limit=limit, param_lc=1.0), device,
-                    counts=approx_counts_sharded,
-                    exact=exact_count_select_sharded)
+                    sharded=True)
     (ec, ecnt), (ac, acnt), _ = full_step(engine, wins, n_valid)
     return ("mesh full step (all-reduced counts) vs oracle",
             _pairs(ec, ecnt) == sel and _pairs(ac, acnt) == ranked)

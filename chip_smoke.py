@@ -75,8 +75,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      rounded up to 128, each new graph warmed up once).  The
      kernel's time and bound at the -sk 20 start end's C and at the -sk 1
      one's.
- 10. Resume: --from-exact on phase 4's warm k=16 exact .start, same seed:
-     no exact export, .start byte-equal to phase 4's, .end 500 lines.
+ 10. Resume: --from-exact on phase 4's warm k=16 exact .start (500 codes)
+     and on phase 9's -sk 20 exact .start (~2,900), same seed: no exact
+     export, .start byte-equal to the full run's, .end 500 lines; the
+     launches those of one fixed-cap graph (``resume_launches``: a warm-up
+     and a replay an end).
  11. Stream: --stream -sn 60000 equals the in-memory run at -sn 60000 (every
      read eligible); then, in a child process, --stream at the default sn on
      a 500,000-read, ~440 MB FASTA (the 50,000 reads ten times over): rc 0,
@@ -96,12 +99,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      warm and under --profile in one process per rank, each rank's exact
      stage sharded by owner rank on the card, exports byte-equal across
      the three and to the same two ranks on the CPU; per-end walls from
-     rank 0's log, each rank's per-end split from its trace (the four
-     exact-stage ranges, the time before and after them, the collectives,
-     the kernel, the device-busy time), the bytes each rank sends per end,
-     the owner balance and the collectives' transport.  (c) At -sn 60000
-     (every read eligible) one rank, two ranks (``torchrun -m
-     approx_counter_tpu_torch --profile``: one trace per rank, two
+     rank 0's log, each rank's sharded passes from its trace (per segment
+     and collective range on the engine's worker thread: host and device
+     ms, graph launches, host syncs; each pass must replay the four
+     segment graphs, and the end pass, all replays, sync the host only in
+     its fetch besides the collectives), the bytes each rank sends per end
+     (padded buckets, and the share the codes fill), the (cap, bucket)
+     runs, the owner balance and the collectives' transport; every rank's
+     launches those of the fused pass's plan.  (c) At -sn 60000 (every
+     read eligible) one rank, two ranks (``torchrun -m
+     approx_counter_tpu_torch --profile``: one trace per rank, the plan's
      nfa_sliced kernels in each) and --stream on the unsplit file export
      the same bytes.
  14. Dispatch: -mr 3 -v 2 at the defaults with --device-pool on, off and
@@ -125,8 +132,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      outgrows the first cap, so a second graph at the regrown cap), and at
      -sk 2 on a 2,000-window end batch: (a) each graph's replayed packed
      vector equal to the same body run eagerly on the card and (but the
-     full -sk 2 batch) on the CPU; (b) the device-resident pass, the eager
-     body (the multihost engine's) against the replay in turns, by CUDA
+     full -sk 2 batch) on the CPU; (b) the device-resident pass, the same
+     bodies run eagerly at each of its caps against the replay in turns,
+     by CUDA
      events and host wall, the graph's host enqueue time and its replay
      alone, launches a
      replay, capture ms and the peak device memory of the graphs; (c) one
@@ -159,13 +167,17 @@ torchrun against the same N ranks on the CPU, rank r on card r (NCCL for
 CUDA tensors when every rank has a card), on N shards of the FASTA.
 
 With ``--split N`` it runs only phase 13 (b)'s measurement at N ranks on
-min(N, cards) cards over N shards, without the CPU ranks, and one more
-run at -sk 1 for its walls and peak device memory.  It reads the
-package of the checkout it sits in, one from before the sharded exact
-stage too: copy it into two checkouts and run them in turns (a b b a).
+min(N, cards) cards over N shards, without the CPU ranks, then more runs
+in the same processes: -sk 20 and -sk 1 (the cap regrows), the owner
+hash replaced by a constant (the bucket regrows; exports equal the warm
+run's), and --from-exact on the warm run's and the -sk 20 run's start
+exports (.start equal to theirs); the walls, peak device memory and a
+sha256 of the exports of each.  Run each checkout's own script in turns
+(a b b a) to compare two versions.
 
 With ``--walls R`` it runs only the dispatch path's walls: R rounds of the
-default run and of -mr 3 -v 2 with --device-pool off and auto, each run's
+default run, of --from-exact on its start export and of -mr 3 -v 2 with
+--device-pool off and auto, each run's
 exports byte-equal to the first round's, and prints a ``[walls]`` JSON line
 of each run's per-pass walls (ms) and whole-CLI wall (s).  Run it in two
 checkouts in turns (a b b a) to compare two versions of the path.
@@ -1448,29 +1460,55 @@ def same_bytes(a: str, b: str) -> None:
             raise AssertionError(f"{a} != {b}")
 
 
+def resume_launches(n_codes: int) -> int:
+    """The sliced kernel's launches in a single-device ``--from-exact`` run
+    of two passes (one batch shape): one graph at the candidates' fixed
+    cap (``candidates_from_codes``), warmed up once and replayed once a
+    pass."""
+    from approx_counter_tpu_torch.kernels.bpm import word_launches
+    from approx_counter_tpu_torch.pipeline import candidates_from_codes
+
+    cap = candidates_from_codes(np.zeros(n_codes, np.uint64))[2]
+    return len(word_launches(cap // 32)) * 3
+
+
 def phase_resume(fasta: str, out_dir: str) -> int:
-    """Phase 10: --from-exact on phase 4's warm k=16 exact .start.
-    Returns the launches."""
+    """Phase 10: --from-exact on phase 4's warm k=16 exact .start (500
+    codes) and on phase 9's -sk 20 exact .start (about 2,900), same seed:
+    each a fixed-cap resume graph.  Returns the first run's launches."""
     import glob
 
-    out, exact = f"{out_dir}/resume_out", f"{out_dir}/resume_exact"
-    reset_launch_counts()
-    rc, stdout = run_cli([fasta, "--from-exact",
-                          f"{out_dir}/k16_warm_exact_0.start", "-o", out,
-                          "-e", exact, "--seed", "5"])
-    launches = launch_counts()["nfa_sliced"]
-    if rc != 0 or launches != 2:
-        raise AssertionError(f"resume rc {rc}, {launches} launches:\n{stdout}")
-    if glob.glob(f"{exact}*"):
-        raise AssertionError("resume wrote an exact export")
-    same_bytes(f"{out}_0.start", f"{out_dir}/k16_warm_out_0.start")
-    with open(f"{out}_0.end") as f:  # start candidates scored on the ends
-        if len(f.read().splitlines()) != 500:
-            raise AssertionError(f"{out}_0.end: not 500 lines")
-    log(f"[resume] --from-exact (500 codes): rc 0, launches {launches}, no "
-        f"exact export, .start byte-equal to the full run's, .end 500 lines; "
-        f"per-end wall {end_seconds(stdout)} s")
-    return launches
+    first = None
+    for tag, prior, full in (
+            ("500 codes", "k16_warm_exact_0.start", "k16_warm_out_0.start"),
+            ("-sk 20's export", "sk20_exact_0.start", "sk20_out_0.start")):
+        stem = "resume" if first is None else "resume_sk20"
+        out, exact = f"{out_dir}/{stem}_out", f"{out_dir}/{stem}_exact"
+        with open(f"{out_dir}/{prior}") as f:
+            n_codes = len(f.read().splitlines())
+        reset_launch_counts()
+        rc, stdout = run_cli([fasta, "--from-exact", f"{out_dir}/{prior}",
+                              "-o", out, "-e", exact, "--seed", "5"])
+        launches = launch_counts()["nfa_sliced"]
+        plan = resume_launches(n_codes)
+        if rc != 0 or launches != plan:
+            raise AssertionError(f"resume ({tag}) rc {rc}, {launches} "
+                                 f"launches (plan {plan}):\n{stdout}")
+        if glob.glob(f"{exact}*"):
+            raise AssertionError("resume wrote an exact export")
+        # the same seed samples the same start batch: the ranking of the
+        # same candidates there is the full run's
+        same_bytes(f"{out}_0.start", f"{out_dir}/{full}")
+        with open(f"{out}_0.end") as f:  # start candidates scored on the ends
+            if len(f.read().splitlines()) != 500:
+                raise AssertionError(f"{out}_0.end: not 500 lines")
+        log(f"[resume] --from-exact ({tag}: {n_codes} codes): rc 0, launches "
+            f"{launches} (plan: one graph at the fixed cap, warmed up once, "
+            f"a replay an end), no exact export, .start byte-equal to the "
+            f"full run's, .end 500 lines; per-end wall "
+            f"{end_seconds(stdout)} s")
+        first = launches if first is None else first
+    return first
 
 
 # The child samples its resident set (VmRSS) every millisecond while a run
@@ -1700,22 +1738,25 @@ def read_trace(path: str):
 # --multihost branch (``__main__.main``: join the group, ``run`` on the
 # rank's card, leave) with the runs of the JSON list in argv[1], one after
 # the other in one process: [label, extra CLI arguments]; ``@RUN@`` in the
-# arguments becomes the run's label.  Rank 0 marks each run in its stdout;
+# arguments becomes the run's label, and a label starting with ``onehash``
+# replaces the owner hash by a constant.  Rank 0 marks each run in its stdout;
 # every rank reports, per run, its launches, its peak device memory and its
-# traffic: the bytes of
-# each window batch it handed to ``gather_windows``'s all-gather (none
-# since the exact stage is sharded), the sharded exact stage's traffic
-# list (where the package has it, so the script also measures a checkout
-# from before the sharded exact stage) and the process group's backend.
+# traffic: the bytes of each window batch it handed to ``gather_windows``'s
+# all-gather (none since the exact stage is sharded), its engines' traffic
+# reports (``Engine.traffic``, one a sharded pass) and the process group's
+# backend.
 MH_RANK = r"""
 import json, sys
 import torch
+from approx_counter_tpu_torch import pipeline
 from approx_counter_tpu_torch.__main__ import run
 from approx_counter_tpu_torch.config.cli import resolve_params
 from approx_counter_tpu_torch.dist import mesh
 from approx_counter_tpu_torch.kernels import bpm
 gathered = []
 allgather_rows = mesh._allgather_rows
+engines = []
+engine_init = pipeline.Engine.__init__
 
 
 def counted(local):
@@ -1724,25 +1765,33 @@ def counted(local):
     return allgather_rows(local)
 
 
+def kept(self, *a, **kw):
+    engine_init(self, *a, **kw)
+    engines.append(self)
+
+
 mesh._allgather_rows = counted
-sharded = getattr(mesh, "exact_count_select_sharded", None)
+pipeline.Engine.__init__ = kept
+mix = mesh.owner_rank
 mesh.initialize()
 rank, rc = mesh.process_index(), 0
 try:
     for label, extra in json.loads(sys.argv[1]):
         prm = resolve_params([a.replace("@RUN@", label)
                               for a in sys.argv[2:] + extra])
+        # a run labelled onehash deals every code to rank 0
+        mesh.owner_rank = ((lambda codes, n: torch.zeros_like(codes))
+                           if label.startswith("onehash") else mix)
         if rank == 0:
             print(f"@@ {label}", flush=True)
         bpm.approx_counts.launches = 0
         gathered.clear()
-        if sharded is not None:
-            sharded.traffic.clear()
+        engines.clear()
         torch.cuda.reset_peak_memory_stats(mesh.rank_device())
         rc = rc or run(prm, mesh.rank_device())
         traffic = json.dumps(dict(
             window_gather=list(gathered),
-            exact=None if sharded is None else list(sharded.traffic),
+            exact=[t for e in engines for t in e.traffic],
             backend=torch.distributed.get_backend()))
         peak = torch.cuda.max_memory_allocated(mesh.rank_device())
         # one write per report: the ranks share torchrun's stderr
@@ -1860,91 +1909,102 @@ def multihost_walls(stdout: str) -> str:
             f"{per_end['start']:.4f} s, end end {per_end['end']:.4f} s")
 
 
-# the sharded exact stage's profiler ranges, in the order they run
-EXACT_RANGES = ("exact local", "exact exchange", "exact owner",
-                "exact gather")
-
-
-def pass_split(path: str) -> dict:
-    """Per end pass of a rank's ``--profile`` trace, in ms: the pass's
-    wall; the host time of each exact-stage range and, where they ran,
-    the time before the first (the upload) and after the last (the
-    approximate counts with their all-reduce, the re-rank and the export);
-    the host time in each collective op (``c10d::``) by name, the
-    ``nfa_sliced`` kernel's device time and the device-busy time."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    ranges = [e for e in events if e.get("cat") == "user_annotation"]
-    on_card = [(e["ts"], e["ts"] + e["dur"]) for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    out = {}
-    for p in ranges:
-        if p["name"] not in ("start pass", "end pass"):
-            continue
-        lo, hi = p["ts"], p["ts"] + p["dur"]
-
-        def inside(e):
-            return lo <= e["ts"] and e["ts"] + e.get("dur", 0) <= hi
-
-        row = {"wall": p["dur"] / 1e3}
-        exact = [e for e in ranges if e["name"] in EXACT_RANGES
-                 and inside(e)]
-        for name in EXACT_RANGES:
-            row[name] = sum(e["dur"] for e in exact
-                            if e["name"] == name) / 1e3
-        if exact:
-            row["before exact"] = (min(e["ts"] for e in exact) - lo) / 1e3
-            row["after exact"] = (hi - max(e["ts"] + e["dur"]
-                                           for e in exact)) / 1e3
-        comms: dict = {}
-        for e in events:
-            if (e.get("cat") == "cpu_op" and inside(e)
-                    and e.get("name", "").startswith("c10d::")):
-                comms[e["name"]] = comms.get(e["name"], 0) + e["dur"] / 1e3
-        row["collectives"] = {k: round(v, 4) for k, v in sorted(comms.items())}
-        row["nfa_sliced"] = sum(
-            e["dur"] for e in events if e.get("cat") == "kernel"
-            and "nfa_sliced" in e.get("name", "") and inside(e)) / 1e3
-        row["device busy"] = busy_ms(on_card, lo, hi)
-        out[p["name"].split()[0]] = {
-            k: (round(v, 4) if isinstance(v, float) else v)
-            for k, v in row.items()}
-    return out
-
-
 def traffic_lines(n: int, traffic: dict) -> list[str]:
     """Per end, the bytes each rank sends and the owner balance, from the
-    ranks' traffic reports of one run (``{rank: report}``).  The window
-    all-gather sends the rank's padded uint8 batch to every other rank;
-    the exchange sends 16 B (code and count) per code owned by another
-    rank and the R split sizes; the gather sends the padded selection, 16
-    B an entry, and its length to every other rank.  The balance is the
-    most unique codes a rank owns over the mean."""
+    ranks' traffic reports of one run (``{rank: report}``).  The exchange
+    sends a bucket row, ``2 * bucket + 4`` int64, to every other rank, of
+    which the codes the rank sent (16 B each) fill a share; the gather
+    sends the owner's row, ``2 * cap + 6`` int64, to every other rank; the
+    all-reduce of the counts moves ``2 (R - 1) / R`` of ``4 * cap`` B in a
+    ring.  The balance is the most unique codes a rank owns over the
+    mean."""
     lines = []
     for end in range(2):
         sent = {}
+        fill = {}
         for r in range(n):
-            rep = traffic[r]
-            b = {}
-            if rep["window_gather"]:
-                b["window all-gather"] = (rep["window_gather"][end]
-                                          + 8) * (n - 1)
-            if rep["exact"]:
-                ex = rep["exact"][end]
-                b["exchange"] = 16 * ex["sent"] + 8 * n
-                b["gather"] = (16 * ex["gathered"] // n + 8) * (n - 1)
-            sent[r] = b
-        line = (f"{('start', 'end')[end]} end: bytes sent per rank "
-                f"{json.dumps(sent)}")
-        exact = [traffic[r]["exact"] for r in range(n)]
-        if all(exact):
-            owned = [e[end]["owned"] for e in exact]
-            local = [e[end]["local"] for e in exact]
-            line += (f"; unique codes counted per rank {local}, owned "
-                     f"{owned}, owner balance (max / mean) "
-                     f"{max(owned) / (sum(owned) / n):.4f}")
-        lines.append(line)
+            ex = traffic[r]["exact"][end]
+            bucket, cap = ex["bucket"], ex["cap"]
+            sent[r] = {"exchange": (n - 1) * (2 * bucket + 4) * 8,
+                       "gather": (n - 1) * (2 * cap + 6) * 8,
+                       "all-reduce": round(2 * (n - 1) / n * 4 * cap)}
+            fill[r] = round(ex["sent"] / max((n - 1) * bucket, 1), 4)
+        exact = [traffic[r]["exact"][end] for r in range(n)]
+        owned = [e["owned"] for e in exact]
+        lines.append(
+            f"{('start', 'end')[end]} end: bytes sent per rank "
+            f"{json.dumps(sent)}; bucket {exact[0]['bucket']}, cap "
+            f"{exact[0]['cap']}, runs at (cap, bucket) {exact[0]['sizes']}; "
+            f"codes sent over bucket slots sent (the rest padding) "
+            f"{json.dumps(fill)}; unique codes counted per rank "
+            f"{[e['local'] for e in exact]}, owned {owned}, owner balance "
+            f"(max / mean) {max(owned) / max(sum(owned) / n, 1e-9):.4f}")
     return lines
+
+
+# the sharded step's profiler ranges on the engine's worker thread, in the
+# order a pass runs them; the collectives' among them
+STEP_RANGES = ("exact local", "exact exchange", "exact owner", "exact gather",
+               "approx count", "approx reduce", "approx rank", "fetch")
+COLLECTIVE_RANGES = ("exact exchange", "exact gather", "approx reduce")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def step_split(path: str) -> list[dict]:
+    """Each sharded pass of a rank's ``--profile`` trace, in order (a pass
+    runs from an ``exact local`` range to the next one): per step range,
+    its host ms, the device ms of the kernels and copies its runtime calls
+    launched (a graph replay's kernels by the ``cudaGraphLaunch``'s
+    correlation), its graph launches and its host syncs; the pass's span
+    and its device-busy ms; and the syncs in its segments, neither a
+    collective nor the fetch, which a pass holds at 0."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and e.get("name") in STEP_RANGES),
+                    key=lambda e: e["ts"])
+    runtime = [e for e in events if e.get("cat", "").startswith("cuda_")]
+    device = {}
+    on_card = []
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            on_card.append((e["ts"], e["ts"] + e["dur"]))
+            corr = e.get("args", {}).get("correlation")
+            device[corr] = device.get(corr, 0.0) + e["dur"] / 1e3
+    passes = []
+    for r in ranges:
+        if r["name"] == "exact local":
+            passes.append([])
+        if passes:
+            passes[-1].append(r)
+    out = []
+    for rs in passes:
+        row = {}
+        lo, hi = rs[0]["ts"], max(r["ts"] + r["dur"] for r in rs)
+        outside = 0
+        for r in rs:
+            calls = [e for e in runtime if e.get("tid") == r.get("tid")
+                     and r["ts"] <= e["ts"] <= r["ts"] + r["dur"]]
+            syncs = sum(e["name"] in SYNC_CALLS for e in calls)
+            if r["name"] not in COLLECTIVE_RANGES + ("fetch",):
+                outside += syncs
+            cell = row.setdefault(r["name"], dict(
+                host_ms=0.0, device_ms=0.0, graph_launches=0, syncs=0))
+            cell["host_ms"] += r["dur"] / 1e3
+            cell["device_ms"] += sum(device.get(e.get("args", {}).get(
+                "correlation"), 0.0) for e in calls)
+            cell["graph_launches"] += sum(e["name"] == "cudaGraphLaunch"
+                                          for e in calls)
+            cell["syncs"] += syncs
+        for cell in row.values():
+            cell["host_ms"] = round(cell["host_ms"], 4)
+            cell["device_ms"] = round(cell["device_ms"], 4)
+        row["span_ms"] = round((hi - lo) / 1e3, 4)
+        row["device_busy_ms"] = round(busy_ms(on_card, lo, hi), 4)
+        row["syncs_in_segments"] = outside
+        out.append(row)
+    return out
 
 
 def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
@@ -1952,9 +2012,15 @@ def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
     """``n`` ranks under torchrun, rank r on cuda:{r % cards}: the run
     cold, warm and once more under ``--profile``, then the ``extra`` runs
     (``[label, CLI arguments]``).  Logs each run's walls from rank 0's log
-    and each rank's peak device memory, each rank's per-end split from its
-    trace, the bytes each rank sends, the owner balance and the transport.
-    Returns the warm run's nfa_sliced launches over all ranks."""
+    and each rank's peak device memory and launches, each rank's sharded
+    passes from its trace (``step_split``: per segment and collective its
+    host and device ms, graph launches and host syncs), the bytes each
+    rank sends, the owner balance and the transport.  The timed runs must
+    launch the kernel as the fused pass's plan says, and the profiled
+    run's passes must launch the four segment graphs, and the end pass,
+    all replays, sync the host in its fetch and in no segment.  Returns
+    the warm run's nfa_sliced launches over all ranks and every run's
+    traffic reports, ``{(rank, run): report}``."""
     import torch
 
     cards = torch.cuda.device_count()
@@ -1967,13 +2033,15 @@ def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
             *extra]
     (rc, stdout, stderr), = run_group(
         [torchrun(n, script, json.dumps(runs),
-                  *multihost_argv(shards, out_dir, f"{stem}_@RUN@"))], 600)
+                  *multihost_argv(shards, out_dir, f"{stem}_@RUN@"))], 900)
     got = {(int(r), run): int(c) for r, run, c in re.findall(
         r"\[rank (\d+)\] (\w+) nfa_sliced launches (\d+)", stderr)}
     timed = sorted(c for (_, run), c in got.items()
                    if run in ("cold", "warm", "profile"))
-    if rc != 0 or timed != [2] * (3 * n):
-        raise AssertionError(f"torchrun, {n} ranks: rc {rc}, launches {got}:"
+    plan = pass_launches([500, 500])
+    if rc != 0 or timed != [plan] * (3 * n):
+        raise AssertionError(f"torchrun, {n} ranks: rc {rc}, launches {got} "
+                             f"(plan {plan} a rank and run):"
                              f"\n{stdout[-3000:]}\n{stderr[-3000:]}")
     decode = json.JSONDecoder().raw_decode
     traffic = {(int(r), run): decode(t)[0] for r, run, t in re.findall(
@@ -1986,7 +2054,8 @@ def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
             f"(torchrun, {backend} for CUDA tensors): rc 0, launches per rank "
             f"{[got[(r, label)] for r in range(n)]}, peak device memory per "
             f"rank {[peak[(r, label)] for r in range(n)]} B, "
-            f"{multihost_walls(logs[label])}")
+            f"{multihost_walls(logs[label])}; (cap, bucket) runs per end "
+            f"{[e['sizes'] for e in traffic[(0, label)]['exact']]}")
     groups = {traffic[(r, "warm")]["backend"] for r in range(n)}
     log(f"[multihost] {n} ranks: process group backend {sorted(groups)}, "
         f"CUDA tensors over {backend}"
@@ -1995,12 +2064,24 @@ def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
     for line in traffic_lines(n, {r: traffic[(r, "warm")] for r in range(n)}):
         log(f"[multihost] {n} ranks, warm, {line}")
     for r in range(n):
-        for end, row in pass_split(f"{prof}/trace.rank{r}.json").items():
+        passes = step_split(f"{prof}/trace.rank{r}.json")
+        for end, row in zip(("start", "end"), passes):
             log(f"[multihost] {n} ranks, profiled run, rank {r}, {end} pass "
-                f"(ms): {json.dumps(row)}")
+                f"(the engine's worker thread): {json.dumps(row)}")
+        launches = [sum(c["graph_launches"] for c in row.values()
+                        if isinstance(c, dict)) for row in passes]
+        if (len(passes) != 2 or launches != [4, 4]
+                or passes[1]["syncs_in_segments"]
+                or not passes[1].get("fetch", {}).get("syncs")):
+            raise AssertionError(f"rank {r}'s profiled passes: graph "
+                                 f"launches {launches}, host syncs in the "
+                                 f"segments "
+                                 f"{[p['syncs_in_segments'] for p in passes]}"
+                                 f", in the fetch "
+                                 f"{[p.get('fetch') for p in passes]}")
     same_exports(f"{out_dir}/{stem}_cold", f"{out_dir}/{stem}_warm")
     same_exports(f"{out_dir}/{stem}_profile", f"{out_dir}/{stem}_warm")
-    return sum(got[(r, "warm")] for r in range(n))
+    return sum(got[(r, "warm")] for r in range(n)), traffic
 
 
 def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
@@ -2008,7 +2089,7 @@ def ranks_vs_cpu(n: int, shards: str, out_dir: str) -> int:
     on the CPU (gloo): exports byte-equal.  Returns the warm run's
     nfa_sliced launches over all ranks."""
     stem = f"mh{n}"
-    launches = multihost_measure(n, shards, out_dir, stem)
+    launches, _ = multihost_measure(n, shards, out_dir, stem)
     port = free_port()
     t0 = time.perf_counter()
     results = run_group([[sys.executable, "-c", MH_CPU_RANK, REPO, str(pid),
@@ -2043,7 +2124,8 @@ def phase_multihost(fasta: str, out_dir: str) -> dict:
         reset_launch_counts()
         rc, stdout = run_cli(argv(f"mh1_{label}"))
         launches = launch_counts()["nfa_sliced"]
-        if rc != 0 or launches != 2:
+        # at one rank the multihost engine runs the single-device fused pass
+        if rc != 0 or launches != pass_launches([500, 500]):
             raise AssertionError(f"--multihost, one rank, {label}: rc {rc}, "
                                  f"{launches} launches:\n{stdout}")
         log(f"[multihost] one rank {label} (CLI, cuda:0): rc 0, launches "
@@ -2070,7 +2152,7 @@ def phase_multihost(fasta: str, out_dir: str) -> dict:
     reset_launch_counts()
     rc, stdout = run_cli(argv("id1", "-sn", "60000"))
     id_launches = launch_counts()["nfa_sliced"]
-    if rc != 0 or id_launches != 2:
+    if rc != 0 or id_launches != pass_launches([500, 500]):
         raise AssertionError(f"identity, one rank: rc {rc}, {id_launches}")
     prof = f"{out_dir}/mh_profile"
     (rc, so, se), = run_group([torchrun(
@@ -2083,7 +2165,8 @@ def phase_multihost(fasta: str, out_dir: str) -> dict:
     for r in (0, 1):
         _, sliced, _, busy[r], _ = read_trace(f"{prof}/trace.rank{r}.json")
         traced[r] = len(sliced)
-    if traced != {0: 2, 1: 2}:
+    plan = pass_launches([500, 500])
+    if traced != {0: plan, 1: plan}:
         raise AssertionError(f"per-rank traces: nfa_sliced kernels {traced}")
     log(f"[multihost] -sn 60000, two ranks on cuda:0 under --profile: device "
         f"busy per end pass, rank 0 {busy[0]}, rank 1 {busy[1]}")
@@ -2125,12 +2208,15 @@ def stats_tags(stdout: str) -> list[bool]:
 
 def same_run_exports(a: str, b: str, n_runs: int) -> None:
     """Every ``<stem>_{out,exact}_<run>.<end>`` of stems ``a`` and ``b``
-    byte-equal, 4 per run."""
+    byte-equal, 4 per run (2 where neither wrote an exact export)."""
     for run in range(n_runs):
         for which in ("start", "end"):
             for kind in ("out", "exact"):
-                same_bytes(f"{a}_{kind}_{run}.{which}",
-                           f"{b}_{kind}_{run}.{which}")
+                pa, pb = (f"{x}_{kind}_{run}.{which}" for x in (a, b))
+                if (kind == "exact" and not os.path.exists(pa)
+                        and not os.path.exists(pb)):
+                    continue
+                same_bytes(pa, pb)
 
 
 def exports_digest(stem: str) -> str:
@@ -2384,8 +2470,9 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
     2,000-window end batch.  (a) Each graph's replayed packed vector equals
     the same body run eagerly on the card and (but at -sk 2 on the full
     batch, whose regrown cap the plain count would take minutes over) on
-    the CPU.  (b) The device-resident pass, the eager body (the multihost
-    engine's) against the replay, in turns (eager, replay, replay, eager):
+    the CPU.  (b) The device-resident pass, the same bodies run eagerly at
+    each of its caps, against the replay, in turns (eager, replay, replay,
+    eager):
     ms by CUDA events and host wall a pass; the last graph's host enqueue
     time and its replay alone by CUDA events; the kernel's launches a
     replay, each capture's ms (warm-up included) and the device memory of
@@ -2419,7 +2506,7 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
         got = engine._count(windows_t, row_mask)
         launches[f"fused pass {tag}"] = launch_counts()["nfa_sliced"]
         n_keep = got[2]["n_keep"]
-        caps = sorted(key[0] for key in engine._graphs)
+        caps = sorted(key[1] for key in engine._graphs)
         if (sk == 0) != (caps == [pass_cap(prm.limit)]):
             raise AssertionError(f"{tag}: graphs at caps {caps}, n_keep "
                                  f"{n_keep}")
@@ -2436,7 +2523,7 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
         cpu_s = time.perf_counter() - t0
         if cpu:
             cpu.close()
-        graphs = {key[0]: engine._graphs[key] for key in engine._graphs}
+        graphs = {key[1]: engine._graphs[key] for key in engine._graphs}
         log(f"[fused] {tag}: n_keep {n_keep}, n_unique "
             f"{got[2]['n_unique']}; graphs at caps {caps}: packed vector "
             f"replayed == body eager on the card"
@@ -2459,9 +2546,17 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
     # (b) the eager body against the replay, in turns
     for tag, (engine, windows_t, row_mask, caps) in runs.items():
         rows = []
+        def eager(engine=engine, windows_t=windows_t, row_mask=row_mask,
+                  caps=caps):
+            # the same bodies, eagerly on the card, at each cap the pass
+            # replays, each fetched
+            for cap in caps:
+                engine._fused_body(windows_t, row_mask, cap).cpu()
+
         for which in ("eager", "replay", "replay", "eager"):
-            fn = engine._count_eager if which == "eager" else engine._count
-            ms, wall = timed_passes(lambda: fn(windows_t, row_mask), 10)
+            fn = eager if which == "eager" else lambda: engine._count(
+                windows_t, row_mask)
+            ms, wall = timed_passes(fn, 10)
             rows.append(f"{which} {ms:.4f} / {wall:.4f}")
         # the last graph by hand, outside the pass: the host time to enqueue
         # the copy and the replay, and the replay alone by CUDA events
@@ -2471,8 +2566,8 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
         with torch.cuda.stream(engine._stream):
             for _ in range(10):
                 t0 = time.perf_counter()
-                fused.windows_t.copy_(windows_t)
-                fused.row_mask.copy_(row_mask)
+                fused.inputs[0].copy_(windows_t)
+                fused.inputs[1].copy_(row_mask)
                 fused.graph.replay()
                 enqueue.append((time.perf_counter() - t0) * 1e3)
                 fused.out.cpu()
@@ -2511,19 +2606,23 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
 
 
 def main_walls(rounds: int) -> None:
-    """``--walls R``: the dispatch path's walls, R rounds."""
+    """``--walls R``: the dispatch path's walls, R rounds: the default
+    run, --from-exact on its start export, and -mr 3 with the pool off and
+    auto."""
     walls: dict = {}
     digest: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "reads.fasta")
         write_fasta(fasta, 50000, seed=5)
         for r in range(rounds):
-            for name, tag, extra in (
-                    ("default", "d", ()),
-                    ("-mr 3 pool off", "off", ("-mr", "3", "--device-pool",
-                                                "off")),
-                    ("-mr 3 pool auto", "auto", ("-mr", "3", "--device-pool",
-                                                 "auto"))):
+            for name, tag, n_runs, extra in (
+                    ("default", "d", 1, ()),
+                    ("--from-exact", "rs", 1, (
+                        "--from-exact", f"{tmp}/d{r}_exact_0.start")),
+                    ("-mr 3 pool off", "off", 3, ("-mr", "3",
+                                                  "--device-pool", "off")),
+                    ("-mr 3 pool auto", "auto", 3, ("-mr", "3",
+                                                    "--device-pool", "auto"))):
                 stem = f"{tmp}/{tag}{r}"
                 t0 = time.perf_counter()
                 rc, stdout = run_cli([fasta, "-o", f"{stem}_out", "-e",
@@ -2533,7 +2632,7 @@ def main_walls(rounds: int) -> None:
                 if rc != 0:
                     raise AssertionError(f"{name}: rc {rc}\n{stdout[-2000:]}")
                 if r:
-                    same_run_exports(f"{tmp}/{tag}0", stem, 3 if extra else 1)
+                    same_run_exports(f"{tmp}/{tag}0", stem, n_runs)
                 else:
                     digest[name] = exports_digest(stem)
                 walls.setdefault(name, []).append(
@@ -2562,18 +2661,39 @@ def main_ranks(n: int) -> int:
 def main_split(n: int) -> int:
     """``--split N``: the default multihost run at N ranks on
     min(N, cards) cards over N shards, measured as phase 13 (b) measures
-    it, with no CPU comparison; a sha256 of the warm and the -sk 1 run's
+    it, with no CPU comparison, then in the same processes -sk 20 and
+    -sk 1 (each end's cap regrows), a constant owner hash (the bucket
+    regrows; the warm run's exports) and --from-exact on the warm and the
+    -sk 20 run's start exports (their .start again); a sha256 of each run's
     exports, to compare two checkouts."""
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "reads.fasta")
         write_fasta(fasta, 50000, seed=5)
-        launches = multihost_measure(
-            n, ",".join(shard_fasta(fasta, tmp, n)), tmp, f"split{n}",
-            (["sk1", ["-sk", "1"]],))
-        digest = {label: exports_digest(f"{tmp}/split{n}_{label}")
-                  for label in ("warm", "sk1")}
-    log(f"[multihost] --split {n}: nfa_sliced launches {launches}, exports "
-        f"sha256 {json.dumps(digest)}")
+        stem = f"{tmp}/split{n}"
+        extra = (["sk20", ["-sk", "20"]], ["sk1", ["-sk", "1"]],
+                 ["onehash", []],
+                 ["resume", ["--from-exact", f"{stem}_warm_exact_0.start"]],
+                 ["resumesk20", ["--from-exact",
+                                 f"{stem}_sk20_exact_0.start"]])
+        launches, traffic = multihost_measure(
+            n, ",".join(shard_fasta(fasta, tmp, n)), tmp, f"split{n}", extra)
+        for label in ("sk20", "sk1", "onehash"):
+            for end in traffic[(0, label)]["exact"]:
+                (cap0, b0), (cap1, b1) = end["sizes"][0], end["sizes"][-1]
+                grew = b1 > b0 if label == "onehash" else cap1 > cap0
+                if not grew:
+                    raise AssertionError(f"{label}: runs at {end['sizes']}")
+        same_exports(f"{stem}_onehash", f"{stem}_warm")
+        for resumed, full in (("resume", "warm"), ("resumesk20", "sk20")):
+            same_bytes(f"{stem}_{resumed}_out_0.start",
+                       f"{stem}_{full}_out_0.start")
+        digest = {label: exports_digest(f"{stem}_{label}")
+                  for label in ("warm", "sk20", "sk1", "onehash", "resume",
+                                "resumesk20")}
+    log(f"[multihost] --split {n}: nfa_sliced launches {launches}; -sk 20 "
+        f"and -sk 1 regrew the cap, the constant owner hash the bucket "
+        f"(exports == the warm run's), each resumed .start == its full "
+        f"run's; exports sha256 {json.dumps(digest)}")
     return 0
 
 
@@ -2651,7 +2771,7 @@ def main(argv: list[str] | None = None) -> int:
                      "resume")
         phase_parity(fasta, tmp, 16, ("--stream",), "stream")
         phase_solid(fasta, tmp, builds, clock_hz)
-        phase_resume(fasta, tmp)
+        paths["nfa_sliced"]["resume"] = phase_resume(fasta, tmp)
         phase_stream(fasta, tmp)
         phase_profile(fasta, tmp)
         paths["nfa_sliced"].update(phase_multihost(fasta, tmp))

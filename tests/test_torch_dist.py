@@ -243,11 +243,9 @@ def test_shard_paths_deal_files_round_robin():
 def test_sharded_counts_and_full_step_at_one_rank():
     """Without a process group ``approx_counts_sharded`` is ``approx_counts``
     and ``full_step`` on an engine built as the multihost orchestrator
-    builds it (``exact=exact_count_select_sharded``) is
-    ``Engine.count_one_end``."""
+    builds it (``sharded=True``) is ``Engine.count_one_end``."""
     from approx_counter_tpu_torch.dist.mesh import (
         approx_counts_sharded,
-        exact_count_select_sharded,
         full_step,
         process_count,
     )
@@ -267,8 +265,7 @@ def test_sharded_counts_and_full_step_at_one_rank():
     windows[40:] = 5
     prm = Params(k=k, sl=24, limit=12)
     want = Engine(prm, "cpu").count_one_end(windows, 40)
-    got = full_step(Engine(prm, "cpu", counts=approx_counts_sharded,
-                           exact=exact_count_select_sharded), windows, 40)
+    got = full_step(Engine(prm, "cpu", sharded=True), windows, 40)
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(g[0], w[0])
         np.testing.assert_array_equal(g[1], w[1])

@@ -1,18 +1,25 @@
-"""The sharded exact stage, ``dist/mesh.py:exact_count_select_sharded``, on
-2 and 4 gloo ranks in subprocesses, against the JAX package's exact stage
-on the whole batch.
+"""The multihost step's exact stage on 2 and 4 gloo ranks in subprocesses,
+against the JAX package's exact stage on the whole batch.
 
 Each case is one seeded window batch dealt to the ranks row by row; each
 rank counts only its rows, and every rank's selection, ``n_unique``,
 ``n_pass``, ``n_keep`` and ``had_n`` must equal
-``exact_count_select_rows`` on every row at once, with no tolerance: they
-are integers.  The cases cover top-N and solid mode, k = 9, 16 and 32
+``exact_count_select_rows`` on every row at once, with no tolerance:
+they are integers. Each case runs a sharded engine's whole fixed-cap
+pass (``Engine(sharded=True)._count``: the three segments of
+``dist/mesh.py``, the collectives on the passes' own process group, one
+fetch), whose approximate ranking must also equal the single-device pass
+on the whole batch, and which may reach the host only through its one
+fetch per run (``Tensor.item``, ``tolist``, ``cpu`` and ``numpy`` raise
+inside it). The cases cover top-N and solid mode, k = 9, 16 and 32
 (negative int64 codes), a forbidden list, ties in count at the ``limit``
 cut, a rank with no valid windows, a rank with no rows, no valid window
 at all, Ns in the windows, and an owner hash replaced by a constant, so
-that one rank owns every code.  One more case runs ``full_step`` on each
-rank with ``gather_windows`` made to raise and records what each rank's
-engine uploads: its own rows only, with the single-device pass's result.
+that one rank owns every code and its bucket overflows: the step reruns
+at a doubled bucket, and every rank reruns alike. One more case runs
+``full_step`` on each rank with ``gather_windows`` made to raise and
+records what each rank's engine uploads: its own rows only, with the
+single-device pass's result.
 
 One process group per rank count runs every case (importing torch takes
 seconds a process); every init and ``communicate`` has a timeout.
@@ -49,6 +56,7 @@ import torch
 torch.set_num_threads(1)
 repo, pid, nproc, port, case_dir = sys.argv[1:6]
 sys.path.insert(0, repo)
+from approx_counter_tpu_torch import pipeline
 from approx_counter_tpu_torch.dist import mesh
 from approx_counter_tpu_torch.params import Params
 from approx_counter_tpu_torch.pipeline import Engine
@@ -74,19 +82,72 @@ def full_step_case(case, wins, valid):
     mine = np.concatenate([wins[valid], np.full((2, wins.shape[1]), 5,
                                                 np.uint8)])
     Engine.device_windows, mesh.gather_windows = spy, no_gather
-    engine = Engine(Params(**case["prm"]), "cpu",
-                    counts=mesh.approx_counts_sharded,
-                    exact=mesh.exact_count_select_sharded)
+    engine = Engine(Params(**case["prm"]), "cpu", sharded=True)
     try:
         (ec, ecnt), (ac, acnt), stats = mesh.full_step(
             engine, mine, int(valid.sum()))
     finally:
         engine.close()
         Engine.device_windows = real
+    traffic.extend(engine.traffic)
     return dict(exact_codes=ec, exact_counts=ecnt, approx_codes=ac,
                 approx_counts=acnt), dict(stats, uploads=uploads,
                                           shard=[list(mine.shape),
                                                  int(valid.sum())])
+
+
+SYNCS = ("item", "tolist", "cpu", "numpy")
+saved = {name: getattr(torch.Tensor, name) for name in SYNCS}
+fetch = pipeline._fetch
+
+
+def refuse(name):
+    def method(self, *a, **kw):
+        raise AssertionError(f"Tensor.{name} before the pass's fetch")
+    return method
+
+
+def engine_case(case, wins, valid, forbidden):
+    # the case through a sharded engine's whole pass, every host sync but
+    # its fetch refused: its results, the survivors of the owners' filters,
+    # the fetches and the sizes it ran at
+    fetches = []
+
+    def one_fetch(t):
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+        fetches.append(1)
+        out = fetch(t)
+        for name in SYNCS:
+            setattr(torch.Tensor, name, refuse(name))
+        return out
+
+    prm = Params(k=case["k"], sl=wins.shape[1] - 1, limit=case["limit"],
+                 solid_km=case["solid_km"], param_lc=2.0)
+    engine = Engine(prm, "cpu", sharded=True)
+    engine.forbidden = torch.from_numpy(forbidden.view(np.int64))
+    windows_t = torch.from_numpy(np.ascontiguousarray(wins.T))
+    positions = engine._positions(wins.shape)
+    pipeline._fetch = one_fetch
+    for name in SYNCS:
+        setattr(torch.Tensor, name, refuse(name))
+    try:
+        (ec, ecnt), (ac, acnt), stats = engine._count(
+            windows_t, torch.from_numpy(valid), positions)
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+        pipeline._fetch = fetch
+        engine.close()
+    (report,) = engine.traffic
+    traffic.append(report)
+    return dict(codes=ec, counts=ecnt, approx_codes=ac,
+                approx_counts=acnt), dict(stats, n_pass=report["n_pass"],
+                                          fetches=len(fetches),
+                                          sizes=report["sizes"])
+
+
+traffic = []
 
 
 try:
@@ -101,20 +162,11 @@ try:
         else:
             mesh.owner_rank = ((lambda codes, n_ranks: torch.zeros_like(
                 codes)) if case["one_owner"] else mix)
-            out = mesh.exact_count_select_sharded(
-                torch.from_numpy(np.ascontiguousarray(wins.T)),
-                torch.from_numpy(valid), case["k"], case["lc_thr"],
-                torch.from_numpy(d["forbidden"].view(np.int64)),
-                case["limit"], case["solid_km"])
-            arrays = dict(codes=out["sel_codes"].numpy(),
-                          counts=out["sel_counts"].numpy())
-            scalars = {key: out[key] for key in
-                       ("n_unique", "n_pass", "n_keep", "had_n")}
+            arrays, scalars = engine_case(case, wins, valid, d["forbidden"])
         np.savez(f"{case_dir}/{case['name']}.rank{rank}.out.npz", **arrays)
         with open(f"{case_dir}/{case['name']}.rank{rank}.json", "w") as f:
             json.dump(scalars, f)
-    print("@@ traffic", json.dumps(mesh.exact_count_select_sharded.traffic),
-          flush=True)
+    print("@@ traffic", json.dumps(traffic), flush=True)
 finally:
     torch.distributed.destroy_process_group()
 """
@@ -174,10 +226,25 @@ CASES = {
     "solid_k9_rank_without_rows": (9, 2, 40, "none_last", False, False,
                                    False),
     "solid_k32_one_owner": (32, 2, 40, "mixed", True, False, True),
+    # nearly every k-mer distinct: one owner gets more than a bucket holds
+    "top_k16_one_owner_distinct": (16, 0, 40, "mixed", True, False, False),
+    "solid_k9_one_owner_distinct": (9, 1, 40, "mixed", True, True, False),
 }
 
 #: the ``full_step`` case's parameters and batch
 FULL_STEP = dict(k=8, sl=24, limit=12)
+
+
+def _distinct_windows(seed, n=96, m=41):
+    """``[m, n]`` random windows, ~1% N, the last 5 rows invalid: nearly
+    every k-mer of k >= 9 occurs once."""
+    rng = np.random.default_rng(seed)
+    wins = rng.integers(0, 4, (n, m)).astype(np.uint8)
+    wins[rng.random((n, m)) < 0.01] = 4
+    row_mask = np.ones(n, bool)
+    row_mask[-5:] = False
+    wins[-5:] = 5
+    return np.ascontiguousarray(wins.T), row_mask
 
 
 def _write_cases(d):
@@ -187,6 +254,8 @@ def _write_cases(d):
     for i, (name, (k, solid_km, limit, kind, one_owner, with_forbidden,
                    gt)) in enumerate(CASES.items()):
         wins_t, valid = _windows(100 + i, n=96, pair=(2, 3) if gt else (0, 3))
+        if name.endswith("_distinct"):
+            wins_t, valid = _distinct_windows(100 + i)
         if name.endswith("nothing_valid"):
             valid[:] = False
         lc_thr = _lc_thr(k)
@@ -302,12 +371,12 @@ def _tie_case_inputs():
 
 @pytest.mark.parametrize("n", RANKS)
 def test_owners_split_the_codes(ranks, n):
-    """The traffic each rank records: with the mixing hash every rank owns
-    codes and sends most of its own away; with one owner only rank 0 owns
-    any."""
+    """The traffic each rank records (each case's pass, then
+    ``full_step``'s): with the mixing hash every rank owns codes and sends
+    most of its own away; with one owner only rank 0 owns any."""
     _, out = ranks
     _, traffic = out[n]
-    names = [c for c in CASES] + ["full_step"]
+    names = list(CASES) + ["full_step"]
     for rank, calls in enumerate(traffic):
         assert [c["rank"] for c in calls] == [rank] * len(names)
         by = dict(zip(names, calls))
@@ -318,6 +387,80 @@ def test_owners_split_the_codes(ranks, n):
     no_rows = [calls[list(CASES).index("solid_k9_rank_without_rows")]
                for calls in traffic]
     assert no_rows[-1]["local"] == 0 and no_rows[-1]["owned"] > 0
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_every_rank_reruns_alike(ranks, n):
+    """Each case's (cap, bucket) reruns are the same on every rank; a
+    constant owner hash on nearly distinct k-mers overflows the first
+    bucket, so the step reruns at a doubled one (at most one holding every
+    position of the largest batch); the mixing hash never reruns at these
+    sizes."""
+    _, out = ranks
+    d, _ = out[n]
+    for name, (*_, one_owner, _, _) in CASES.items():
+        sizes = [_rank_result(d, name, rank)[1]["sizes"]
+                 for rank in range(n)]
+        assert all(s == sizes[0] for s in sizes), name
+        runs = sizes[0]
+        for (cap0, b0), (cap1, b1) in zip(runs, runs[1:]):
+            # a bucket doubled (or cut to every position of the largest
+            # batch) at the same cap, or else a cap regrown
+            assert ((cap0 == cap1 and b0 < b1 <= 2 * b0 and b1 % 128 == 0)
+                    or (b0 == b1 and cap0 < cap1)), name
+        if name.endswith("_distinct"):
+            assert runs[-1][1] > runs[0][1], name
+        elif not one_owner:
+            assert len(runs) == 1, name
+
+
+@pytest.fixture(scope="module")
+def single_device(ranks):
+    """Each case's single-device fused pass on the whole batch (the port's
+    ``Engine`` on the CPU, the JAX pass's equal): {case: result}."""
+    from approx_counter_tpu_torch.params import Params
+    from approx_counter_tpu_torch.pipeline import Engine
+
+    _, out = ranks
+    d, _ = out[RANKS[0]]
+    with open(d / "cases.json") as f:
+        cases = {c["name"]: c for c in json.load(f)}
+    got = {}
+    for name in CASES:
+        case, data = cases[name], np.load(d / f"{name}.npz")
+        wins = data["windows"]
+        engine = Engine(Params(k=case["k"], sl=wins.shape[1] - 1,
+                               limit=case["limit"], solid_km=case["solid_km"],
+                               param_lc=2.0), "cpu")
+        engine.forbidden = torch.from_numpy(data["forbidden"].view(np.int64))
+        try:
+            got[name] = engine._count(
+                torch.from_numpy(np.ascontiguousarray(wins.T)),
+                torch.from_numpy(data["valid"]))
+        finally:
+            engine.close()
+    return got
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("n", RANKS)
+def test_sharded_engine_pass_matches_jax_and_one_device(ranks, single_device,
+                                                        n, name):
+    """The engine's whole sharded pass on every rank: the counters and
+    approximate ranking of the single-device pass on the whole batch, and
+    one fetch per run of the step, the host reached through nothing
+    else."""
+    want, out = ranks
+    d, _ = out[n]
+    w = want[name]
+    (_, (s_codes, s_counts), s_stats) = single_device[name]
+    for rank in range(n):
+        arrays, scalars = _rank_result(d, name, rank)
+        for key in ("n_unique", "n_keep", "had_n"):
+            assert scalars[key] == s_stats[key], (rank, key)
+        assert scalars["fetches"] == len(scalars["sizes"])
+        np.testing.assert_array_equal(arrays["approx_codes"], s_codes)
+        np.testing.assert_array_equal(arrays["approx_counts"], s_counts)
 
 
 @pytest.mark.parametrize("n", RANKS)

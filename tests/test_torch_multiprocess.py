@@ -40,9 +40,26 @@ sys.path.insert(0, repo)
 from approx_counter_tpu_torch.dist import mesh
 from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
 from approx_counter_tpu_torch.params import Params
+from approx_counter_tpu_torch import pipeline
 mesh.initialize(f"tcp://127.0.0.1:{port}", int(nproc), int(pid),
                 device_type="cpu", timeout=120)
 all_reduce = torch.distributed.all_reduce
+events = []
+start_pass, finish = pipeline.Engine.start_pass, pipeline._PendingPass.finish
+
+
+def spy_start(self, *a, **kw):
+    events.append("dispatch")
+    return start_pass(self, *a, **kw)
+
+
+def spy_finish(self):
+    events.append("fetch")
+    return finish(self)
+
+
+pipeline.Engine.start_pass = spy_start
+pipeline._PendingPass.finish = spy_finish
 
 
 def twice(t, *a, **kw):
@@ -56,9 +73,11 @@ try:
             print(f"@@ {name}", file=stream, flush=True)
         torch.distributed.all_reduce = (twice if mode == "all_reduce_twice"
                                         else all_reduce)
+        events.clear()
         rc = run_pipeline_multihost(Params(**prm), device="cpu")
         sys.stdout.flush()
         print(f"@@ rc {rc}", file=sys.stderr, flush=True)
+        print(f"@@ events {json.dumps(events)}", file=sys.stderr, flush=True)
 finally:
     torch.distributed.destroy_process_group()
 """
@@ -105,9 +124,11 @@ def _communicate(procs):
     return results
 
 
-def run_ranks(n, runs):
+def run_ranks(n, runs, events=None):
     """``runs``, a list of ``(name, prm, mode)``, one after the other on
-    ``n`` gloo ranks -> ``{name: [(rc, stdout, stderr) of each rank]}``."""
+    ``n`` gloo ranks -> ``{name: [(rc, stdout, stderr) of each rank]}``.
+    ``events`` gets ``{name: [each rank's pass dispatches and fetches, in
+    order]}``."""
     port = str(_free_port())
     results = _communicate([
         subprocess.Popen([sys.executable, "-c", WORKER, REPO, str(pid),
@@ -125,6 +146,9 @@ def run_ranks(n, runs):
             rc = re.search(r"^@@ rc (\d+)\n", text, re.M)
             by_run[name].append((int(rc.group(1)), outs[name],
                                  text[:rc.start()]))
+            ev = re.search(r"^@@ events (.*)\n", text, re.M)
+            if events is not None:
+                events.setdefault(name, []).append(json.loads(ev.group(1)))
     assert all(len(v) == n for v in by_run.values()), by_run
     return by_run
 
@@ -139,6 +163,61 @@ JAX_NUMPY_WORKER = JAX_WORKER.replace(_IMPORT, (
     "def _not_built():\n"
     "    raise ImportError('native library not used')\n"
     "_native._load = _not_built\n") + _IMPORT)
+
+
+#: The JAX package's orchestrator on its numpy paths, one jax.distributed
+#: group running the runs of the JSON list in argv[5] one after the other
+#: (as ``WORKER`` does for the port).  Each run's Python-level stdout and
+#: stderr go to files of their own under argv[6], so that the notices the
+#: collectives' native code prints into the process's stdout stay out.
+JAX_RUNS_WORKER = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.distributed.initialize(f"127.0.0.1:{port}", num_processes=nproc,
+                           process_id=pid)
+sys.path.insert(0, sys.argv[4])
+import approx_counter_tpu.io.native as _native
+def _not_built():
+    raise ImportError('native library not used')
+_native._load = _not_built
+from approx_counter_tpu.params import Params
+from approx_counter_tpu.dist.multihost import run_pipeline_multihost
+for name, prm in json.loads(sys.argv[5]):
+    stem = f"{sys.argv[6]}/{name}.rank{pid}"
+    with open(f"{stem}.out", "w") as out, open(f"{stem}.err", "w") as err:
+        sys.stdout, sys.stderr = out, err
+        try:
+            rc = run_pipeline_multihost(Params(**prm))
+        finally:
+            sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+    with open(f"{stem}.rc", "w") as f:
+        f.write(str(rc))
+"""
+
+
+def start_jax_runs(n, runs, out_dir):
+    """``JAX_RUNS_WORKER`` on ``n`` processes, started: their Popens."""
+    port = str(_free_port())
+    env = {k: v_ for k, v_ in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    return [subprocess.Popen(
+        [sys.executable, "-c", JAX_RUNS_WORKER, str(pid), str(n), port, REPO,
+         json.dumps(runs), str(out_dir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for pid in range(n)]
+
+
+def jax_run_results(procs, runs, out_dir):
+    """``{run: [(rc, stdout, stderr) of each process]}`` once the processes
+    of ``start_jax_runs`` have ended."""
+    for rc, _, err in _communicate(procs):
+        assert rc == 0, err[-3000:]
+    return {name: [tuple([int((out_dir / f"{name}.rank{r}.rc").read_text())]
+                         + [(out_dir / f"{name}.rank{r}.{x}").read_text()
+                            for x in ("out", "err")])
+                   for r in range(len(procs))] for name, _ in runs}
 
 
 def run_jax_ranks(n, paths, out, exact, sn, v):
@@ -169,6 +248,28 @@ def _assert_ok(results):
 UNBALANCED = {2: ((3, 17), 10), 4: ((1, 2, 3, 14), 12)}
 
 
+def _mode_runs(d, n, stem):
+    """Runs below identity on shards holding Ns, to hold against the JAX
+    orchestrator: ``modes``, -mr 2 -sk 2 -v 2; ``resume``, --from-exact on that
+    run's first end export.  Writes the shards the first time."""
+    path = d / "modes"
+    if not path.exists():
+        seqs = _seqs(n=40, seed=7)
+        seqs = [s[:3] + "N" + s[4:] if i % 5 == 0 else s
+                for i, s in enumerate(seqs)]
+        _write_shards(path, seqs, lambda i: i % n, n)
+    shards = ",".join(str(path / f"shard{i}.fasta") for i in range(n))
+
+    def prm(name, **kw):
+        return dict(COMMON, input_file=shards, sn=25, output=str(
+            path / f"{stem}_{name}"), exact_out=str(path / f"{stem}e_{name}"),
+            **kw)
+
+    return [("modes", prm("modes", v=2, nb_of_runs=2, solid_km=2)),
+            ("resume", prm("resume", v=1, from_exact=str(
+                path / f"{stem}e_modes_0.end")))]
+
+
 def _runs(d, n):
     """The runs of ``n`` ranks, their shards written under ``d``."""
     def prm(case, paths, stem=None, **kw):
@@ -183,6 +284,7 @@ def _runs(d, n):
         np.searchsorted(bounds, i, "right")), n)
     runs = [("identity", prm("identity", ident, "mh", sn=100, v=1), "ok"),
             ("unbalanced", prm("unbalanced", unbal, "mh", sn=sn, v=1), "ok")]
+    runs += [(name, prm, "ok") for name, prm in _mode_runs(d, n, "mh")]
     if n == 2:
         below = _write_shards(d / "below", _seqs(n=40, seed=99),
                               lambda i: i % 2, 2)
@@ -199,11 +301,24 @@ def _runs(d, n):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every run of ``_runs`` at 2 and at 4 ranks, each rank count one
-    process group: ``{n: (directory, {run: results of each rank})}``."""
-    out = {}
+    process group, and meanwhile the JAX orchestrator's ``_mode_runs`` on
+    as many processes: ``{n: (directory, {run: results of each rank})}``, with
+    ``"events"``: ``{n: {run: each rank's dispatches and fetches}}`` and
+    ``"jax"``: ``{n: {run: results of each JAX process}}``."""
+    dirs, runs, jax = {}, {}, {}
     for n in (2, 4):
-        d = tmp_path_factory.mktemp(f"ranks{n}")
-        out[n] = d, run_ranks(n, _runs(d, n))
+        dirs[n] = tmp_path_factory.mktemp(f"ranks{n}")
+        runs[n] = _runs(dirs[n], n)
+        jax_runs = _mode_runs(dirs[n], n, "jax")
+        jax[n] = (start_jax_runs(n, jax_runs, dirs[n]), jax_runs)
+    out = {"events": {}, "jax": {}}
+    try:
+        for n in (2, 4):
+            out[n] = dirs[n], run_ranks(n, runs[n],
+                                        out["events"].setdefault(n, {}))
+    finally:
+        for n in (2, 4):
+            out["jax"][n] = jax_run_results(*jax[n], dirs[n])
     return out
 
 
@@ -334,3 +449,56 @@ def test_export_failure_exits_1_on_every_rank(ranks):
     assert [rc for rc, _, _ in results] == [1, 1]
     assert "Failed to export approximate k-mer count" in results[0][2]
     assert "Failed to export" not in results[1][2]
+    # the end pass was in flight when the start pass's export failed: each
+    # rank dispatched both ends and fetched one, and still returned (the
+    # subprocesses' timeouts turn a hang into a failure)
+    assert ranks["events"][2]["export_failure"] == [
+        ["dispatch", "dispatch", "fetch"]] * 2
+
+
+def _mask_stats(line: str) -> str:
+    """The numbers of a ``[stats]`` line (times and rates) become ``#``,
+    as ``tests/test_torch_modes.py`` masks them."""
+    if "[stats]" in line:
+        return re.sub(r"\d[\d.e+-]*", "#", line)
+    return line
+
+
+@pytest.mark.parametrize("run", ["modes", "resume"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_n_ranks_match_the_jax_orchestrator(ranks, n, run):
+    """Below identity, with Ns in the reads: -mr 2 -sk 2 -v 2 and
+    --from-exact on its export export the JAX orchestrator's bytes on as many
+    processes; rank 0's stdout (timestamps stripped, ``[stats]`` numbers
+    masked) and stderr (the lines JAX itself may write aside) are the JAX
+    rank 0's, and no other rank prints."""
+    d, by_run = ranks[n]
+    got, want = by_run[run], ranks["jax"][n][run]
+    _assert_ok(got)
+    _assert_ok(want)
+    d = d / "modes"
+    ours, theirs = _exports(d, f"mh_{run}"), _exports(d, f"jax_{run}")
+    assert len(ours) == (4 if run == "modes" else 2)
+    assert ours == theirs
+    assert _exports(d, f"mhe_{run}") == _exports(d, f"jaxe_{run}")
+    assert ([_mask_stats(x) for x in _strip_ms(got[0][1]).splitlines()]
+            == [_mask_stats(x) for x in _strip_ms(want[0][1]).splitlines()])
+    program_err = "".join(line for line in want[0][2].splitlines(True)
+                          if line.startswith(("/!\\", "Path: ")))
+    assert got[0][2] == program_err
+    if run == "modes":
+        assert "/!\\ WARNING: This dataset contained" in got[0][2]
+    else:
+        assert "Resuming from" in got[0][1]
+    assert all(out == "" and err == "" for _, out, err in got[1:])
+
+
+def test_both_ends_are_in_flight_before_either_fetch(ranks):
+    """Every rank dispatches both ends of a run before it fetches either,
+    as the JAX orchestrator does: at -mr 2 once per run."""
+    for n in (2, 4):
+        events = ranks["events"][n]
+        both = ["dispatch", "dispatch", "fetch", "fetch"]
+        for run in ("identity", "unbalanced", "resume"):
+            assert events[run] == [both] * n, (n, run)
+        assert events["modes"] == [both * 2] * n, n

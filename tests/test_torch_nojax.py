@@ -5,7 +5,8 @@ None`` makes their import fail), imports every module of
 ``approx_counter_tpu_torch`` (the three of ``dist/``, ``searchscheme`` and
 the bench among them), imports the names each sub-package's ``__init__`` re-exports,
 holds a plain count to ``search_scheme_error_count``, runs one fused
-pass (``Engine._pass_output``, ``unpack_pass_output``), and runs a
+pass (``Engine._pass_output``, ``unpack_pass_output``) and one resume
+pass (``Engine.approx_stage``), imports the sharded step's pieces, and runs a
 tiny ``run_pipeline`` (once more at ``-mr 2`` through the device window
 pool) and ``run_pipeline_multihost`` on the CPU.
 It guards against an import chain such as the JAX package's
@@ -49,9 +50,13 @@ SCRIPT = textwrap.dedent(r"""
         compare_count_keys, compare_count_np, sort_by_compare_count)
     from approx_counter_tpu_torch.count import (exact_count_select,
                                                 exact_count_select_rows)
+    from approx_counter_tpu_torch.count.exact import (exact_count_local_rows,
+                                                      select_counted_rows)
+    from approx_counter_tpu_torch.dist.mesh import (
+        bucket_slots, exchange, gather, local_segment, merge_owned,
+        next_sizes, owner_segment)
     from approx_counter_tpu_torch.count.approx import approx_count_rank
     from approx_counter_tpu_torch.dist import (approx_counts_sharded,
-                                               exact_count_select_sharded,
                                                gather_windows, initialize)
     from approx_counter_tpu_torch.io import print_counters, read_fastx
     from approx_counter_tpu_torch.kernels import (approx_counts, approx_counts_ref,
@@ -69,7 +74,8 @@ SCRIPT = textwrap.dedent(r"""
     from approx_counter_tpu_torch.dist.multihost import run_pipeline_multihost
     from approx_counter_tpu_torch.params import Params
     from approx_counter_tpu_torch.pipeline import (
-        Engine, pass_cap, run_pipeline, unpack_pass_output)
+        Engine, candidates_from_codes, pass_cap, run_pipeline,
+        unpack_pass_output)
     # one fused pass: its fixed-shape body eagerly, packed and unpacked
     engine = Engine(Params(k=4, sl=7, limit=3), "cpu")
     wins_t = torch.from_numpy(np.tile(wins.T, (1, 4)).copy())
@@ -78,6 +84,11 @@ SCRIPT = textwrap.dedent(r"""
     out = unpack_pass_output(packed, pass_cap(3), 4)
     assert (int(out["exact"]["n_keep"]), int(out["exact"]["sel_lo"][0]),
             int(out["approx_count"][0])) == (1, 27, 12), out
+    # the resume pass at the fixed cap of candidates_from_codes
+    assert candidates_from_codes(np.array([27], np.uint64))[2] == 512
+    got = engine.approx_stage(np.tile(wins, (4, 1)), 4,
+                              np.array([27, 255, 27], np.uint64))
+    assert [c.tolist() for c in got] == [[27, 27, 255], [12, 12, 0]], got
     engine.close()
     tmp = sys.argv[1]
     with open(os.path.join(tmp, "r.fasta"), "w") as f:
