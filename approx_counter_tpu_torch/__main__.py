@@ -14,47 +14,10 @@ environment and left on the way out, and each rank's trace is
 
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
 
-
-@contextlib.contextmanager
-def profiled(profile_dir: str, device):
-    """``torch.profiler`` over the block when ``profile_dir`` is set (CPU
-    activity on every thread, the engine's worker among them, and CUDA
-    activity on a CUDA device), its Chrome trace
-    written on the way out, also when the block raises: to
-    ``profile_dir/trace.json``, or ``profile_dir/trace.rank<r>.json`` in a
-    process group; a plain block otherwise."""
-    if not profile_dir:
-        yield
-        return
-    import torch
-
-    from torch.profiler import ProfilerActivity
-
-    activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    # one recording cycle: acc_events keeps torch from warning that a new
-    # cycle would clear the events
-    prof = torch.profiler.profile(
-        activities=activities, acc_events=True,
-        experimental_config=torch.profiler._ExperimentalConfig(
-            profile_all_threads=True))
-    prof.start()
-    try:
-        yield
-    finally:
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        prof.stop()
-        name = "trace.json"
-        if torch.distributed.is_initialized():
-            name = f"trace.rank{torch.distributed.get_rank()}.json"
-        prof.export_chrome_trace(os.path.join(profile_dir, name))
+from approx_counter_tpu_torch.tracing import profiled
 
 
 def run(prm, device) -> int:

@@ -40,7 +40,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from approx_counter_tpu_torch.dist.mesh import process_count, process_index
 from approx_counter_tpu_torch.dist.sampling import (
@@ -54,6 +53,7 @@ from approx_counter_tpu_torch.pipeline import (
     echo_params,
     report_and_export_end,
 )
+from approx_counter_tpu_torch.tracing import span
 
 
 def shard_paths(paths: list[str], process_index: int,
@@ -130,10 +130,12 @@ def run_pipeline_multihost(prm, log: Log | None = None, *, device) -> int:
                 log("Streaming pass (reservoir sampling both ends)",
                     tab_level)
             t_stream = time.perf_counter()
-            b_start, b_end, n_reads, g_counts = distributed_sample_windows(
-                my_paths, sn, prm.sl, rng=rng, process_count=pc,
-                process_index=pi, end_is_start=quirk_end_is_start, v=mr_v,
-            )
+            with span("sample"):
+                b_start, b_end, n_reads, g_counts = (
+                    distributed_sample_windows(
+                        my_paths, sn, prm.sl, rng=rng, process_count=pc,
+                        process_index=pi, end_is_start=quirk_end_is_start,
+                        v=mr_v))
             t_stream = time.perf_counter() - t_stream
             batches = {"start": (b_start, g_counts[0]),
                        "end": (b_end, g_counts[1])}
@@ -157,7 +159,7 @@ def run_pipeline_multihost(prm, log: Log | None = None, *, device) -> int:
 
             tab_level += 1
             for which_end in ends:
-                with torch.profiler.record_function(f"{which_end} pass"):
+                with span(f"{which_end} pass"):
                     bottom = which_end == "end" and not quirk_end_is_start
                     if v > 0:
                         log(f"Working on sequence {which_end}.",

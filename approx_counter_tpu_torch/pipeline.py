@@ -23,9 +23,13 @@ while one pass counts on the engine's worker thread, the driver samples,
 packs and ships the next.  Multi-pass runs can instead ship every eligible
 read's windows once into a device window pool (``--device-pool``) and then
 only an index vector per pass.  Neither changes a byte of output.  Each end
-runs inside a ``torch.profiler.record_function`` range named ``"<end>
-pass"``, and the next pass's sampling and upload inside one named
-``"prefetch"``, so a ``--profile`` trace shows where each begins and ends.
+runs inside a span (``tracing.span``, a ``torch.profiler`` range while a
+profiler records) named ``"<end> pass"``, the next pass's sampling and
+upload inside one named ``"prefetch"``, and each layer's work inside its
+own (``parse``, ``engine``, ``pool``, ``sample``, ``pack``, ``upload``,
+``wait``, ``warm-up``, ``capture``, ``fetch``, ``export``, ``close``), with
+the counters ``upload.bytes`` and ``regrow.reruns`` as marks among them, so
+a ``--profile`` trace shows where each begins and ends.
 
 Selection is the reference's top-``limit`` or, with ``-sk N``, solid mode:
 every passing k-mer counted N times or more, all of them exported exactly
@@ -95,6 +99,7 @@ from approx_counter_tpu_torch.kernels.bpm import (
 from approx_counter_tpu_torch.params import Params
 from approx_counter_tpu_torch.io.stream import stream_sample_windows
 from approx_counter_tpu_torch.sample.sampler import gather_rows, sample_windows
+from approx_counter_tpu_torch.tracing import count, span
 
 #: Row granularity of the JAX package's device batches; the pool decision
 #: prices a pass's upload in rows padded to it, as the JAX package does.
@@ -164,7 +169,8 @@ def candidates_from_codes(codes: np.ndarray):
 
 def _fetch(t: torch.Tensor) -> np.ndarray:
     """A pass's one fetch: its packed output to the host."""
-    return t.cpu().numpy()
+    with span("fetch"):
+        return t.cpu().numpy()
 
 
 def _fmt_num(x: float) -> str:
@@ -227,8 +233,10 @@ def report_and_export_end(prm, log, mr_v: int, tab_level: int,
         if mr_v > 0:
             log("Exporting exact kmer count", tab_level)
         path = prm.exact_out + run_suffix + "." + which_end
-        if is_host0 and not export_counter(exact_codes, exact_counts,
-                                            prm.k, path):
+        with span("export"):
+            ok = not is_host0 or export_counter(exact_codes, exact_counts,
+                                                prm.k, path)
+        if not ok:
             error("Failed to export exact k-mer count")
             sys.stderr.write(f"Path: {path}\n")
             return False
@@ -241,8 +249,10 @@ def report_and_export_end(prm, log, mr_v: int, tab_level: int,
         log("Starting approximate counting", tab_level)
         log("Exporting approximate count", tab_level)
     path = prm.output + run_suffix + "." + which_end
-    if is_host0 and not export_counter(approx_codes, approx_counts_, prm.k,
-                                        path):
+    with span("export"):
+        ok = not is_host0 or export_counter(approx_codes, approx_counts_,
+                                            prm.k, path)
+    if not ok:
         error("Failed to export approximate k-mer count")
         sys.stderr.write(f"Path: {path}\n")
         return False
@@ -276,7 +286,8 @@ class _Staging:
             total += -(-a.nbytes // 8) * 8  # keep every part 8-byte aligned
         i, self.turn = self.turn, self.turn ^ 1
         if self.copied[i] is not None:
-            self.copied[i].synchronize()
+            with span("upload wait"):
+                self.copied[i].synchronize()
         if self.bufs[i] is None or self.bufs[i].numel() < total:
             self.bufs[i] = torch.empty(max(total, 1), dtype=torch.uint8,
                                        pin_memory=True)
@@ -354,7 +365,8 @@ class _PendingPass:
         """Wait for the pass and return what ``Engine.count_one_end``
         returns (the unpacked fetch, after any cap regrowth).  An exception
         raised by the pass is raised here."""
-        return self._future.result()
+        with span("wait"):
+            return self._future.result()
 
 
 class _FusedGraph:
@@ -386,14 +398,16 @@ class _FusedGraph:
         # synchronizes the card, collects garbage and empties the cache,
         # under the feet of the caller's thread
         t0 = time.perf_counter()
-        self.body(*self.inputs)
+        with span("warm-up"):
+            self.body(*self.inputs)
         graph = torch.cuda.CUDAGraph()
         before = approx_counts.launches
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            self.out = self.body(*self.inputs)
-        finally:
-            graph.capture_end()
+        with span("capture"):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out = self.body(*self.inputs)
+            finally:
+                graph.capture_end()
         self.launches = approx_counts.launches - before
         approx_counts.launches = before
         self.graph = graph
@@ -442,34 +456,38 @@ class Engine:
     caller's thread."""
 
     def __init__(self, prm: Params, device, sharded: bool = False):
-        self.prm = prm
-        self.device = torch.device(device)
-        self.lc_sum_thr = lc_sum_threshold(prm.adjusted_lc, prm.k)
-        codes = (parse_kmer_list(prm.forbid_kmer) if prm.forbid_kmer
-                 else np.empty(0, np.uint64))
-        self.forbidden = torch.from_numpy(codes.view(np.int64)).to(self.device)
-        self._staging = (_Staging(self.device)
-                         if self.device.type == "cuda" else None)
-        self._worker = concurrent.futures.ThreadPoolExecutor(
-            1, thread_name_prefix="pass")
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
-        self._pool = None
-        self._group = (mesh.pass_group() if sharded
-                       and mesh.process_count() > 1 else None)
-        #: this rank's traffic in each sharded pass (``mesh.traffic_report``)
-        self.traffic: list[dict] = []
-        # (kind, cap, ...) -> the kind's graphs; the lock keeps two threads
-        # from filling one graph's static inputs at once
-        self._graphs: dict[tuple, object] = {}
-        self._graph_lock = threading.Lock()
+        with span("engine"):
+            self.prm = prm
+            self.device = torch.device(device)
+            self.lc_sum_thr = lc_sum_threshold(prm.adjusted_lc, prm.k)
+            codes = (parse_kmer_list(prm.forbid_kmer) if prm.forbid_kmer
+                     else np.empty(0, np.uint64))
+            self.forbidden = torch.from_numpy(codes.view(np.int64)).to(
+                self.device)
+            self._staging = (_Staging(self.device)
+                             if self.device.type == "cuda" else None)
+            self._worker = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix="pass")
+            self._stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
+            self._pool = None
+            self._group = (mesh.pass_group() if sharded
+                           and mesh.process_count() > 1 else None)
+            #: this rank's traffic in each sharded pass
+            #: (``mesh.traffic_report``)
+            self.traffic: list[dict] = []
+            # (kind, cap, ...) -> the kind's graphs; the lock keeps two
+            # threads from filling one graph's static inputs at once
+            self._graphs: dict[tuple, object] = {}
+            self._graph_lock = threading.Lock()
 
     def close(self) -> None:
         """Wait for every dispatched pass, dropping its result and its
         exception, stop the worker thread and free the CUDA graphs.  A pass
         dispatched after this raises."""
-        self._worker.shutdown(wait=True)
-        self._graphs.clear()
+        with span("close"):
+            self._worker.shutdown(wait=True)
+            self._graphs.clear()
 
     def _on_stream(self, body, ready, tensors: tuple):
         """Run ``body`` on the worker thread: on the CPU as it is, on a
@@ -501,9 +519,14 @@ class Engine:
             yield
 
     def _upload(self, *arrays: np.ndarray) -> list:
-        if self._staging is None:
-            return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        return self._staging.upload(list(arrays))
+        """The host ``arrays`` as tensors on the device; counts their bytes
+        as ``upload.bytes``."""
+        with span("upload"):
+            count("upload.bytes", sum(a.nbytes for a in arrays))
+            if self._staging is None:
+                return [torch.from_numpy(np.ascontiguousarray(a))
+                        for a in arrays]
+            return self._staging.upload(list(arrays))
 
     def device_windows(self, windows: np.ndarray, n_valid: int):
         """Host uint8 ``[n, m]`` batch -> (text-major ``[m, n]`` windows on
@@ -512,13 +535,17 @@ class Engine:
         the sparse-N format (0.25 B/base), any other in the dense
         two-plane one (0.375 B/base)."""
         n, m = windows.shape
-        ncols = sparse_ncols(windows, n_valid)
-        sparse = pack_windows_sparse_native(windows, n_valid, ncols, NCAP)
+        with span("pack"):
+            ncols = sparse_ncols(windows, n_valid)
+            sparse = pack_windows_sparse_native(windows, n_valid, ncols,
+                                                NCAP)
+            dense = (pack_windows_host(windows)[0] if sparse is None
+                     else None)
         if sparse is not None:
             lo, n_idx = self._upload(*sparse)
             windows_t = unpack_windows_sparse_t(lo, n_idx, n_valid, ncols, m)
         else:
-            (planes,) = self._upload(pack_windows_host(windows)[0])
+            (planes,) = self._upload(dense)
             windows_t = unpack_windows(planes, m).t().contiguous()
         return windows_t, torch.arange(n, device=self.device) < n_valid
 
@@ -531,24 +558,25 @@ class Engine:
         ``ends`` (the ends the pass plan can reach).  Every pool pass then
         ships only its index vector and gathers its batch on the device.
         Returns False (no pool) when no read is eligible."""
-        elig = np.nonzero(reads.lengths >= 2 * sl)[0]
-        E = len(elig)
-        if E == 0:
-            self._pool = None
-            return False
-        width = sl + 1
-        inv = np.full(len(reads), -1, np.int64)
-        inv[elig] = np.arange(E)
-        pools = {}
-        for which in ends:
-            end = which == "end"
-            wins = np.full((E, width), BASE_PAD, np.uint8)
-            offs = reads.offsets
-            starts = offs[elig + 1] - 1 - sl if end else offs[elig]
-            gather_rows(reads.buf, starts, width if end else sl, wins)
-            pools[which] = self.device_windows(wins, E)[0]
-        self._pool = dict(pools=pools, inv=inv, E=E)
-        return True
+        with span("pool"):
+            elig = np.nonzero(reads.lengths >= 2 * sl)[0]
+            E = len(elig)
+            if E == 0:
+                self._pool = None
+                return False
+            width = sl + 1
+            inv = np.full(len(reads), -1, np.int64)
+            inv[elig] = np.arange(E)
+            pools = {}
+            for which in ends:
+                end = which == "end"
+                wins = np.full((E, width), BASE_PAD, np.uint8)
+                offs = reads.offsets
+                starts = offs[elig + 1] - 1 - sl if end else offs[elig]
+                gather_rows(reads.buf, starts, width if end else sl, wins)
+                pools[which] = self.device_windows(wins, E)[0]
+            self._pool = dict(pools=pools, inv=inv, E=E)
+            return True
 
     def start_pass_pool(self, chosen: np.ndarray, n_valid: int,
                         end: bool) -> _PendingPass:
@@ -556,8 +584,9 @@ class Engine:
         the pool (``index_select`` by the rows of the ``chosen`` reads);
         the only upload is the index vector (``pool_index``)."""
         pool = self._pool
-        (idx_ext,) = self._upload(pool_index(pool["inv"], chosen, n_valid,
-                                             pool["E"]))
+        with span("pack"):
+            idx = pool_index(pool["inv"], chosen, n_valid, pool["E"])
+        (idx_ext,) = self._upload(idx)
         idx, row_mask = pool_rows(idx_ext)
         windows_t = pool["pools"]["end" if end else "start"].index_select(
             1, idx)
@@ -608,17 +637,18 @@ class Engine:
     def _unpacked(self, arr: np.ndarray, cap: int):
         """``count_one_end``'s result from a pass's packed output at
         ``cap``."""
-        out = unpack_pass_output(arr, cap, self.prm.k)
-        ex = out["exact"]
-        n_keep = int(ex["n_keep"])
-        n_approx = min(int(out["approx_valid"].sum()), self.prm.limit)
-        return ((join_code(ex["sel_hi"][:n_keep], ex["sel_lo"][:n_keep]),
-                 ex["sel_count"][:n_keep].astype(np.uint64)),
-                (join_code(out["approx_hi"][:n_approx],
-                           out["approx_lo"][:n_approx]),
-                 out["approx_count"][:n_approx].astype(np.uint64)),
-                dict(n_unique=int(ex["n_unique"]), n_keep=n_keep,
-                     had_n=int(ex["had_n"])))
+        with span("fetch"):
+            out = unpack_pass_output(arr, cap, self.prm.k)
+            ex = out["exact"]
+            n_keep = int(ex["n_keep"])
+            n_approx = min(int(out["approx_valid"].sum()), self.prm.limit)
+            return ((join_code(ex["sel_hi"][:n_keep], ex["sel_lo"][:n_keep]),
+                     ex["sel_count"][:n_keep].astype(np.uint64)),
+                    (join_code(out["approx_hi"][:n_approx],
+                               out["approx_lo"][:n_approx]),
+                     out["approx_count"][:n_approx].astype(np.uint64)),
+                    dict(n_unique=int(ex["n_unique"]), n_keep=n_keep,
+                         had_n=int(ex["had_n"])))
 
     def _fused_pass(self, windows_t, row_mask):
         """The JAX package's pass: the fixed-shape program at the first
@@ -631,6 +661,7 @@ class Engine:
             if n_keep <= cap:
                 return self._unpacked(arr, cap)
             cap = _round_up(n_keep, CT)
+            count("regrow.reruns", 1)
 
     def _fused_body(self, windows_t, row_mask, cap: int) -> torch.Tensor:
         """The fixed-shape pass: exact stage at ``cap`` slots, approximate
@@ -700,6 +731,7 @@ class Engine:
             if nxt is None:
                 break
             sizes.append(nxt)
+            count("regrow.reruns", 1)
         self.traffic.append(mesh.traffic_report(mesh.process_index(), stats,
                                                 sizes))
         return self._unpacked(arr, cap)
@@ -748,24 +780,22 @@ class Engine:
         collective is a ``--profile`` range."""
         seg = self._sharded_segments(cap, bucket, *windows_t.shape)
         group = self._group
-        record = torch.profiler.record_function
         with self._engine_stream():
-            with record("exact local"):
+            with span("exact local"):
                 send = seg[0].run(windows_t, row_mask)
-            with record("exact exchange"):
+            with span("exact exchange"):
                 recv = mesh.exchange(send, group)
-            with record("exact owner"):
+            with span("exact owner"):
                 row = seg[1].run(recv)
-            with record("exact gather"):
+            with span("exact gather"):
                 gathered = mesh.gather(row, group)
-            with record("approx count"):
+            with span("approx count"):
                 counts, *rest = seg[2].run(gathered, windows_t, row_mask)
-            with record("approx reduce"):
+            with span("approx reduce"):
                 dist.all_reduce(counts, group=group)
-            with record("approx rank"):
+            with span("approx rank"):
                 packed = seg[3].run(counts, *rest)
-            with record("fetch"):
-                return _fetch(packed)
+            return _fetch(packed)
 
     def _candidates(self, codes: np.ndarray):
         """``candidates_from_codes`` on the device: (int64 codes, bool
@@ -851,7 +881,8 @@ def run_pipeline(prm: Params, log: Log | None = None, *, device) -> int:
     if not prm.stream:
         if v > 0:
             log("Parsing FASTA file", tab_level)
-        reads = read_fastx(prm.input_file)
+        with span("parse"):
+            reads = read_fastx(prm.input_file)
         if v > 0:
             log(f"Number of sequences found: {len(reads)}.", tab_level)
     elif not os.path.exists(prm.input_file):
@@ -920,9 +951,10 @@ def run_pipeline(prm: Params, log: Log | None = None, *, device) -> int:
         return None
 
     def sample(end_flag: bool, warn_sink=None):
-        return sample_windows(reads, sn, prm.sl, end=end_flag, rng=rng,
-                              pad_to=1, v=mr_v, warn_sink=warn_sink,
-                              gather=not use_pool)
+        with span("sample"):
+            return sample_windows(reads, sn, prm.sl, end=end_flag, rng=rng,
+                                  pad_to=1, v=mr_v, warn_sink=warn_sink,
+                                  gather=not use_pool)
 
     prefetched = None  # (key, batch, t_sample, pending, warn_msgs)
 
@@ -975,7 +1007,7 @@ def run_pipeline(prm: Params, log: Log | None = None, *, device) -> int:
             nxt = next_pass_key(current_run, which_end)
             if nxt is not None:
                 # a pass is in flight: sample, pack and ship the next one
-                with torch.profiler.record_function("prefetch"):
+                with span("prefetch"):
                     t_s2 = time.perf_counter()
                     warn_msgs2: list = []
                     end2 = nxt[1] == "end" and not quirk_end_is_start
@@ -1018,10 +1050,11 @@ def run_pipeline(prm: Params, log: Log | None = None, *, device) -> int:
                 if mr_v > 0:
                     log("Streaming pass (reservoir sampling both ends)",
                         tab_level)
-                b_start, b_end, n_reads = stream_sample_windows(
-                    prm.input_file, sn, prm.sl, rng=rng, pad_to=1,
-                    end_is_start=quirk_end_is_start, v=mr_v,
-                )
+                with span("sample"):
+                    b_start, b_end, n_reads = stream_sample_windows(
+                        prm.input_file, sn, prm.sl, rng=rng, pad_to=1,
+                        end_is_start=quirk_end_is_start, v=mr_v,
+                    )
                 stream_batches = {"start": b_start, "end": b_end}
                 if v > 0 and current_run == 0:
                     log(f"Number of sequences found: {n_reads}.", tab_level)
@@ -1035,7 +1068,7 @@ def run_pipeline(prm: Params, log: Log | None = None, *, device) -> int:
 
             tab_level += 1
             for which_end in ("start", "end"):
-                with torch.profiler.record_function(f"{which_end} pass"):
+                with span(f"{which_end} pass"):
                     if not one_end(current_run, which_end, stream_batches,
                                    run_suffix):
                         return 1
