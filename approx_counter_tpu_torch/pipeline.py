@@ -14,10 +14,11 @@ memory and a non-blocking copy on a CUDA device) and counts there as the
 JAX package's fused pass does: one fixed-shape program (the exact stage's
 ``cap`` slots, the approximate counts through the CUDA kernel of
 ``kernels/bpm.py``, the re-rank) whose whole result is one packed vector,
-fetched once.  On a CUDA device that program is captured once per shape as
-a CUDA graph and replayed every pass; on the CPU it runs eagerly.  A pass
-whose ``n_keep`` outgrows ``cap`` runs again at a larger one (the JAX
-package's cap regrowth; solid mode rides it).  Passes are pipelined as in
+fetched once.  On a CUDA device that program runs eagerly at a shape's
+first pass, is captured as a CUDA graph at its second and replayed at
+every later one; on the CPU it runs eagerly.  A pass whose ``n_keep``
+outgrows ``cap`` runs again, eagerly, at a larger one (the JAX package's
+cap regrowth; solid mode rides it).  Passes are pipelined as in
 the JAX package:
 while one pass counts on the engine's worker thread, the driver samples,
 packs and ships the next.  Multi-pass runs can instead ship every eligible
@@ -27,8 +28,9 @@ runs inside a span (``tracing.span``, a ``torch.profiler`` range while a
 profiler records) named ``"<end> pass"``, the next pass's sampling and
 upload inside one named ``"prefetch"``, and each layer's work inside its
 own (``parse``, ``engine``, ``pool``, ``sample``, ``pack``, ``upload``,
-``wait``, ``warm-up``, ``capture``, ``fetch``, ``export``, ``close``), with
-the counters ``upload.bytes`` and ``regrow.reruns`` as marks among them, so
+``wait``, ``eager``, ``capture``, ``fetch``, ``export``, ``close``), with
+the counters ``upload.bytes``, ``regrow.reruns`` and ``graph.eager`` as
+marks among them, so
 a ``--profile`` trace shows where each begins and ends.
 
 Selection is the reference's top-``limit`` or, with ``-sk N``, solid mode:
@@ -369,23 +371,34 @@ class _PendingPass:
             return self._future.result()
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lives on a CUDA device, where a segment may be a
+    graph."""
+    return t.device.type == "cuda"
+
+
 class _FusedGraph:
-    """One fixed-shape segment of a pass on a CUDA device, captured as a
-    CUDA graph: its static inputs (allocated at the first run like the
-    tensors given), the graph and its static outputs.  ``run(*values)``
-    copies the values into the inputs, replays the graph on the current
-    stream and returns the outputs (the body's tensor or tuple of tensors),
-    which the next replay overwrites.  On the first run it runs ``body``
-    once eagerly (the warm-up: kernel builds and lazily loaded modules)
-    and then captures it (``capture_error_mode="thread_local"``: the
-    caller's thread may upload the next batch meanwhile).  ``launches`` is
-    how many times the capture called the count kernel's wrapper,
-    ``approx_counts``; its counter is set back by that many after the
-    capture, which launched nothing, and goes up by that many at every
-    replay.  On the CPU ``run`` calls ``body`` on the values, eagerly."""
+    """One fixed-shape segment of a pass, run eagerly on its first use and
+    captured as a CUDA graph on its second, on a CUDA device.
+    ``run(*values)`` gives the segment's outputs (the body's tensor or
+    tuple of tensors) on ``values``, on the current stream.  The first run
+    calls ``body`` on them (a span ``eager`` and a mark ``graph.eager=1``):
+    its outputs are fresh tensors, and it builds the kernels and loads the
+    modules the capture needs.  The second allocates the static inputs like
+    the values, copies the values in, captures ``body`` on the inputs
+    (``capture_error_mode="thread_local"``: the caller's thread may upload
+    the next batch meanwhile) and replays; every later run copies in and
+    replays, and its outputs are the static ones, which the next replay
+    overwrites.  A segment run once only (a rerun at a regrown cap or
+    bucket) is never captured.  ``launches`` is how many times the capture
+    called the count kernel's wrapper, ``approx_counts``; its counter is
+    set back by that many after the capture, which launched nothing, and
+    goes up by that many at every replay.  On the CPU ``run`` calls
+    ``body`` on the values, eagerly."""
 
     def __init__(self, body):
         self.body = body
+        self.runs = 0
         self.inputs = None
         self.graph = None
         self.out = None
@@ -398,8 +411,6 @@ class _FusedGraph:
         # synchronizes the card, collects garbage and empties the cache,
         # under the feet of the caller's thread
         t0 = time.perf_counter()
-        with span("warm-up"):
-            self.body(*self.inputs)
         graph = torch.cuda.CUDAGraph()
         before = approx_counts.launches
         with span("capture"):
@@ -415,8 +426,13 @@ class _FusedGraph:
 
     def run(self, *values):
         """The segment's outputs on ``values``, on the current stream."""
-        if values[0].device.type != "cuda":
+        if not _on_card(values[0]):
             return self.body(*values)
+        self.runs += 1
+        if self.runs == 1:
+            with span("eager"):
+                count("graph.eager", 1)
+                return self.body(*values)
         if self.inputs is None:
             self.inputs = [torch.empty_like(v) for v in values]
         for dst, src in zip(self.inputs, values):
@@ -435,17 +451,18 @@ class Engine:
     Every pass is a fixed-shape program at a selection ``cap``, with one
     fetch of its packed output, run again at a larger cap when ``n_keep``
     outgrows it (the JAX package's cap regrowth); on a CUDA device each of
-    its segments is a CUDA graph, captured once per shape and replayed, on
-    the CPU the same bodies run eagerly.  A pass of the default engine is
-    the fused one (``_fused_pass``: one segment).  ``sharded=True`` builds
-    the multihost orchestrator's engine: with more than one rank its
-    passes are the sharded step of ``dist/mesh.py`` (``_sharded_pass``:
-    three segments with a collective between each pair and one more before
-    the re-rank, on the passes' own process group, ``mesh.pass_group``),
-    so each rank counts its own windows; at one rank they are the fused
-    pass.  A
-    resume pass (``approx_stage``, ``start_pass(codes=)``) scores the
-    ``--from-exact`` list at the fixed cap of ``candidates_from_codes``.
+    its segments runs eagerly at a shape's first pass, is captured as a
+    CUDA graph at its second and replayed after, and a rerun at a larger
+    cap runs eagerly; on the CPU the same bodies run eagerly.  A pass of
+    the default engine is the fused one (``_fused_pass``: one segment).
+    ``sharded=True`` builds the multihost orchestrator's engine: with more
+    than one rank its passes are the sharded step of ``dist/mesh.py``
+    (``_sharded_pass``: three segments with a collective between each pair
+    and one more before the re-rank, on the passes' own process group,
+    ``mesh.pass_group``), so each rank counts its own windows; at one rank
+    they are the fused pass.  A resume pass (``approx_stage``,
+    ``start_pass(codes=)``) scores the ``--from-exact`` list at the fixed
+    cap of ``candidates_from_codes``.
 
     A pass is dispatched (``start_pass``, ``start_pass_pool``) and then
     finished: dispatch packs the batch on the host and ships it (sparse-N
@@ -653,14 +670,15 @@ class Engine:
     def _fused_pass(self, windows_t, row_mask):
         """The JAX package's pass: the fixed-shape program at the first
         cap, one fetch of its packed output, and again at ``n_keep``
-        rounded up to ``CT`` while ``n_keep`` outgrows the cap."""
-        cap = pass_cap(self.prm.limit)
+        rounded up to ``CT`` while ``n_keep`` outgrows the cap (a rerun,
+        never captured)."""
+        cap, rerun = pass_cap(self.prm.limit), False
         while True:
-            arr = self._pass_output(cap, windows_t, row_mask)
+            arr = self._pass_output(cap, windows_t, row_mask, rerun)
             n_keep = int(arr[1])
             if n_keep <= cap:
                 return self._unpacked(arr, cap)
-            cap = _round_up(n_keep, CT)
+            cap, rerun = _round_up(n_keep, CT), True
             count("regrow.reruns", 1)
 
     def _fused_body(self, windows_t, row_mask, cap: int) -> torch.Tensor:
@@ -677,37 +695,33 @@ class Engine:
                                        ex["sel_valid"])
         return pack_pass_output(ex, approx, prm.k)
 
-    def _cached(self, key: tuple, make):
-        """The graphs under ``key`` (kind, cap, ...), made by ``make`` at
-        first use and cached like the JAX package's ``_fused_cache``.  Of a
-        kind's graphs at a regrown cap, which solid mode makes nearly every
-        pass, only the newest is kept."""
+    def _cached(self, key: tuple, make, rerun: bool = False):
+        """The segments under ``key`` (kind, cap, ...), made by ``make`` at
+        first use and cached like the JAX package's ``_fused_cache``; for a
+        ``rerun`` (a pass run again at a regrown cap or bucket) made anew
+        and not cached, so they run once, eagerly."""
+        if rerun:
+            return make()
         got = self._graphs.get(key)
         if got is None:
-            first = pass_cap(self.prm.limit)
-            if key[1] != first:
-                for old in [k for k in self._graphs
-                            if k[0] == key[0] and k[1] != first]:
-                    del self._graphs[old]
             got = self._graphs[key] = make()
         return got
 
-    def _fused_fn(self, cap: int, m: int, n: int) -> _FusedGraph:
-        """The CUDA graph of the fused pass at ``cap`` over ``[m, n]``
-        batches, per (cap, m, n, solid mode)."""
+    def _fused_fn(self, cap: int, m: int, n: int,
+                  rerun: bool = False) -> _FusedGraph:
+        """The fused pass at ``cap`` over ``[m, n]`` batches, per (cap, m,
+        n, solid mode)."""
         return self._cached(
             ("fused", cap, m, n, self.prm.solid_km > 0),
-            lambda: _FusedGraph(lambda w, r: self._fused_body(w, r, cap)))
+            lambda: _FusedGraph(lambda w, r: self._fused_body(w, r, cap)),
+            rerun)
 
-    def _pass_output(self, cap: int, windows_t, row_mask) -> np.ndarray:
-        """One run of the fused pass: its packed output as numpy int32.  On
-        the CPU the body runs eagerly; on a CUDA device the batch is
-        copied into the graph's static input and the graph replayed on the
-        engine's stream."""
-        if self._stream is None:
-            return _fetch(self._fused_body(windows_t, row_mask, cap))
+    def _pass_output(self, cap: int, windows_t, row_mask,
+                     rerun: bool = False) -> np.ndarray:
+        """One run of the fused pass on the engine's stream: its packed
+        output as numpy int32 (``_FusedGraph.run``)."""
         with self._engine_stream():
-            return _fetch(self._fused_fn(cap, *windows_t.shape).run(
+            return _fetch(self._fused_fn(cap, *windows_t.shape, rerun).run(
                 windows_t, row_mask))
 
     def _sharded_pass(self, windows_t, row_mask, positions: int):
@@ -723,7 +737,8 @@ class Engine:
                   mesh.bucket_slots(positions, n_ranks))]
         while True:
             cap, bucket = sizes[-1]
-            arr = self._sharded_output(cap, bucket, windows_t, row_mask)
+            arr = self._sharded_output(cap, bucket, windows_t, row_mask,
+                                       len(sizes) > 1)
             stats = arr[pass_words(cap, k):].reshape(n_ranks, -1)
             nxt = mesh.next_sizes(
                 bool(stats[0, mesh.STATS.index("overflow")]), int(arr[1]),
@@ -736,11 +751,13 @@ class Engine:
                                                 sizes))
         return self._unpacked(arr, cap)
 
-    def _sharded_segments(self, cap: int, bucket: int, m: int, n: int):
-        """The sharded step's four graphs at ``cap`` and ``bucket`` over
+    def _sharded_segments(self, cap: int, bucket: int, m: int, n: int,
+                          rerun: bool):
+        """The sharded step's four segments at ``cap`` and ``bucket`` over
         ``[m, n]`` batches: A (``mesh.local_segment``), B
         (``mesh.owner_segment``), C (``mesh.merge_owned``, ``build_peq`` and
-        the kernel on this rank's windows) and the re-rank with the pack."""
+        the kernel on this rank's windows) and the re-rank with the pack;
+        uncached for a ``rerun``."""
         prm = self.prm
         k, n_ranks, me = prm.k, mesh.process_count(), mesh.process_index()
 
@@ -770,15 +787,15 @@ class Engine:
                     recv, k, self.lc_sum_thr, self.forbidden, prm.limit,
                     prm.solid_km, cap, me)),
                 _FusedGraph(count),
-                _FusedGraph(rank)])
+                _FusedGraph(rank)], rerun)
 
-    def _sharded_output(self, cap: int, bucket: int, windows_t,
-                        row_mask) -> np.ndarray:
-        """One run of the sharded step: the segments replayed on the
-        engine's stream with the collectives issued between them on the
-        engine's process group, then one fetch.  Each segment and
-        collective is a ``--profile`` range."""
-        seg = self._sharded_segments(cap, bucket, *windows_t.shape)
+    def _sharded_output(self, cap: int, bucket: int, windows_t, row_mask,
+                        rerun: bool) -> np.ndarray:
+        """One run of the sharded step: the segments run on the engine's
+        stream with the collectives issued between them on the engine's
+        process group, then one fetch.  Each segment and collective is a
+        ``--profile`` range."""
+        seg = self._sharded_segments(cap, bucket, *windows_t.shape, rerun)
         group = self._group
         with self._engine_stream():
             with span("exact local"):

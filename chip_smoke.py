@@ -71,15 +71,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      exact export holds n_keep lines, every count >= N, in CompareCount
      order; the approximate one min(n_keep, 500), adapters on top; the
      launches are those the fused pass's plan gives for the two ends'
-     n_keep (``pass_launches``: a replay at cap 512 and one at n_keep
-     rounded up to 128, each new graph warmed up once).  The
+     n_keep (``pass_launches``: one launch at cap 512 and one at n_keep
+     rounded up to 128 a pass, eager, captured or replayed).  The
      kernel's time and bound at the -sk 20 start end's C and at the -sk 1
      one's.
  10. Resume: --from-exact on phase 4's warm k=16 exact .start (500 codes)
      and on phase 9's -sk 20 exact .start (~2,900), same seed: no exact
      export, .start byte-equal to the full run's, .end 500 lines; the
-     launches those of one fixed-cap graph (``resume_launches``: a warm-up
-     and a replay an end).
+     launches those of one fixed-cap graph (``resume_launches``: the
+     start end eager, the end end captured and replayed).
  11. Stream: --stream -sn 60000 equals the in-memory run at -sn 60000 (every
      read eligible); then, in a child process, --stream at the default sn on
      a 500,000-read, ~440 MB FASTA (the 50,000 reads ten times over): rc 0,
@@ -101,9 +101,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      the three and to the same two ranks on the CPU; per-end walls from
      rank 0's log, each rank's sharded passes from its trace (per segment
      and collective range on the engine's worker thread: host and device
-     ms, graph launches, host syncs; each pass must replay the four
-     segment graphs, and the end pass, all replays, sync the host only in
-     its fetch besides the collectives), the bytes each rank sends per end
+     ms, graph launches, host syncs; the start pass must run the four
+     segments eagerly, and the end pass capture and replay them and sync
+     the host only in its fetch besides the collectives), the bytes each
+     rank sends per end
      (padded buckets, and the share the codes fill), the (cap, bucket)
      runs, the owner balance and the collectives' transport; every rank's
      launches those of the fused pass's plan.  (c) At -sn 60000 (every
@@ -127,23 +128,26 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      phase 2's kernel rate (C x W over its least trial's ms, timed as the
      bench times, scaled from W 40,000 to the bench's 40,960); its JSON
      line and its ``[bench]`` lines are printed again here.
- 16. Fused pass: the single-device pass as one CUDA graph per shape, on
-     the default end batch at the defaults and at -sk 2 (its n_keep
-     outgrows the first cap, so a second graph at the regrown cap), and at
-     -sk 2 on a 2,000-window end batch: (a) each graph's replayed packed
-     vector equal to the same body run eagerly on the card and (but the
-     full -sk 2 batch) on the CPU; (b) the device-resident pass, the same
-     bodies run eagerly at each of its caps against the replay in turns,
-     by CUDA
+ 16. Fused pass: the single-device pass, eager at a shape's first pass,
+     then one CUDA graph per shape at the first cap, on the default end
+     batch at the defaults and at -sk 2 (its n_keep outgrows the first
+     cap, so an eager rerun at the regrown cap, never cached), and at -sk
+     2 on a 2,000-window end batch: (a) the first pass eager at every cap,
+     no graph yet; the captured replay at the first cap and the eager
+     rerun's packed vectors equal to the same body run eagerly on the
+     card and (but the full -sk 2 batch) on the CPU, the next pass equal
+     to the first; (b) the device-resident pass, the same bodies run
+     eagerly at each of its caps against the pass in turns, by CUDA
      events and host wall, the graph's host enqueue time and its replay
-     alone, launches a
-     replay, capture ms and the peak device memory of the graphs; (c) one
-     pass under ``torch.profiler``: one graph launch and no kernel launch
-     on the calling thread, the replay's kernels by name, the busy share.
-Every single-device pass of the phases runs the fused pass: a CUDA graph
-replayed once (twice on cap regrowth), each graph warmed up once by an
-eager run before its capture, so a default run launches the sliced kernel
-3 times (``pass_launches``).
+     alone, launches a replay, capture ms and the peak device memory of
+     the graphs; (c) one pass under ``torch.profiler``: one graph launch
+     and no kernel launch on the calling thread, the replay's kernels by
+     name, the busy share.
+Every single-device pass of the phases runs the fused pass: eager at a
+shape's first pass, captured as a CUDA graph at its second and replayed at
+every later one, and eager again at a regrown cap, so each pass launches
+the sliced kernel once at each cap it runs: a default run twice
+(``pass_launches``).
 Each approximate-count kernel's bound is the larger of its bytes over the
 memory rate and the time of the busiest limit of its text loop's SASS
 (from cuobjdump), over 132 SMs at the card's maximum SM clock: the integer
@@ -517,26 +521,18 @@ def reset_launch_counts() -> None:
 
 def pass_launches(n_keeps: list[int], limit: int = 500) -> int:
     """The sliced kernel's launches in a single-device run whose passes
-    (one batch shape) keep ``n_keeps``: each pass replays the graph at the
-    first cap and, when its n_keep outgrows it, at n_keep rounded up to
-    ``CT``; each graph's first use runs its body once eagerly before the
-    capture (the warm-up), and the engine keeps one graph at a regrown
-    cap.  A graph at ``cap`` launches the kernel ``word_launches(cap //
-    32)`` times."""
+    (one batch shape) keep ``n_keeps``: each pass runs the body at the
+    first cap (eagerly, captured and replayed, or replayed) and, when its
+    n_keep outgrows it, eagerly at n_keep rounded up to ``CT``; no run is
+    thrown away.  A run at ``cap`` launches the kernel
+    ``word_launches(cap // 32)`` times."""
     from approx_counter_tpu_torch.kernels.bpm import word_launches
     from approx_counter_tpu_torch.pipeline import CT, _round_up, pass_cap
 
-    first, graphs, total = pass_cap(limit), set(), 0
+    first, total = pass_cap(limit), 0
     for n_keep in n_keeps:
         caps = [first] + ([_round_up(n_keep, CT)] if n_keep > first else [])
-        for cap in caps:
-            per = len(word_launches(cap // 32))
-            if cap not in graphs:
-                if cap != first:
-                    graphs = {c for c in graphs if c == first}
-                graphs.add(cap)
-                total += per  # the warm-up
-            total += per  # the replay
+        total += sum(len(word_launches(cap // 32)) for cap in caps)
     return total
 
 
@@ -1433,8 +1429,8 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
                             "Approximate k-mer count")
         app_ms = per_end_ms(stdout, "Exporting approximate count", "Done")
         log(f"[solid] -sk {sk}: rc 0, n_keep {kept}, launches {launches} "
-            f"(plan {plan}: one pass at cap 512, one at n_keep rounded up "
-            f"to 128, each graph once more to warm up; > {OLD_LIMIT} "
+            f"(plan {plan}: one pass at cap 512, one eager rerun at n_keep "
+            f"rounded up to 128; > {OLD_LIMIT} "
             f"candidates: "
             f"{ {e: n > OLD_LIMIT for e, n in kept.items()} }), exact exports "
             f"n_keep lines >= {sk} in CompareCount order, approx "
@@ -1462,14 +1458,14 @@ def same_bytes(a: str, b: str) -> None:
 
 def resume_launches(n_codes: int) -> int:
     """The sliced kernel's launches in a single-device ``--from-exact`` run
-    of two passes (one batch shape): one graph at the candidates' fixed
-    cap (``candidates_from_codes``), warmed up once and replayed once a
-    pass."""
+    of two passes (one batch shape): one segment at the candidates' fixed
+    cap (``candidates_from_codes``), eager at the first pass, captured and
+    replayed at the second."""
     from approx_counter_tpu_torch.kernels.bpm import word_launches
     from approx_counter_tpu_torch.pipeline import candidates_from_codes
 
     cap = candidates_from_codes(np.zeros(n_codes, np.uint64))[2]
-    return len(word_launches(cap // 32)) * 3
+    return len(word_launches(cap // 32)) * 2
 
 
 def phase_resume(fasta: str, out_dir: str) -> int:
@@ -1503,9 +1499,9 @@ def phase_resume(fasta: str, out_dir: str) -> int:
             if len(f.read().splitlines()) != 500:
                 raise AssertionError(f"{out}_0.end: not 500 lines")
         log(f"[resume] --from-exact ({tag}: {n_codes} codes): rc 0, launches "
-            f"{launches} (plan: one graph at the fixed cap, warmed up once, "
-            f"a replay an end), no exact export, .start byte-equal to the "
-            f"full run's, .end 500 lines; per-end wall "
+            f"{launches} (plan: one segment at the fixed cap, eager at the "
+            f"start end, a replay at the end end), no exact export, .start "
+            f"byte-equal to the full run's, .end 500 lines; per-end wall "
             f"{end_seconds(stdout)} s")
         first = launches if first is None else first
     return first
@@ -2016,9 +2012,10 @@ def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
     passes from its trace (``step_split``: per segment and collective its
     host and device ms, graph launches and host syncs), the bytes each
     rank sends, the owner balance and the transport.  The timed runs must
-    launch the kernel as the fused pass's plan says, and the profiled
-    run's passes must launch the four segment graphs, and the end pass,
-    all replays, sync the host in its fetch and in no segment.  Returns
+    launch the kernel as the fused pass's plan says, and of the profiled
+    run's passes the start one must run its segments eagerly (no graph
+    launch) and the end one capture and replay the four segment graphs
+    and sync the host in its fetch and in no segment.  Returns
     the warm run's nfa_sliced launches over all ranks and every run's
     traffic reports, ``{(rank, run): report}``."""
     import torch
@@ -2070,7 +2067,7 @@ def multihost_measure(n: int, shards: str, out_dir: str, stem: str,
                 f"(the engine's worker thread): {json.dumps(row)}")
         launches = [sum(c["graph_launches"] for c in row.values()
                         if isinstance(c, dict)) for row in passes]
-        if (len(passes) != 2 or launches != [4, 4]
+        if (len(passes) != 2 or launches != [0, 4]
                 or passes[1]["syncs_in_segments"]
                 or not passes[1].get("fetch", {}).get("syncs")):
             raise AssertionError(f"rank {r}'s profiled passes: graph "
@@ -2467,24 +2464,32 @@ def replay_trace(engine, cap: int, windows_t, row_mask, path: str) -> dict:
 def phase_fused(fasta: str, out_dir: str) -> dict:
     """Phase 16: the fused pass on the default end batch, at the defaults
     and at -sk 2 (whose n_keep outgrows the first cap), and at -sk 2 on a
-    2,000-window end batch.  (a) Each graph's replayed packed vector equals
-    the same body run eagerly on the card and (but at -sk 2 on the full
-    batch, whose regrown cap the plain count would take minutes over) on
-    the CPU.  (b) The device-resident pass, the same bodies run eagerly at
-    each of its caps, against the replay, in turns (eager, replay, replay,
-    eager):
-    ms by CUDA events and host wall a pass; the last graph's host enqueue
-    time and its replay alone by CUDA events; the kernel's launches a
-    replay, each capture's ms (warm-up included) and the device memory of
-    the three engines' graphs.  (c) One default pass under
+    2,000-window end batch.  (a) The first pass runs every cap eagerly and
+    leaves one uncaptured segment, at the first cap; the second run there
+    is captured and replayed, and a rerun at the regrown cap runs eagerly
+    and is never cached.  Each packed vector equals the same body run
+    eagerly on the card and (but at -sk 2 on the full batch, whose
+    regrown cap the plain count would take minutes over) on the CPU, and
+    a later pass equals the first.  (b) The device-resident pass, the same
+    bodies run eagerly at each of its caps, against the pass, in turns
+    (eager, pass, pass, eager): ms by CUDA events and host wall a pass;
+    the graph's host enqueue time and its replay alone by CUDA events;
+    the kernel's launches a replay, the capture's ms and the device memory
+    of the three engines' graphs.  (c) One default pass under
     ``torch.profiler``: this thread's runtime calls (one graph launch, no
     kernel launch), the replay's kernels by name and the pass's
-    device-busy share.  Returns the kernel's launches in each first pass."""
+    device-busy share.  Returns the kernel's launches in each first
+    pass."""
     import torch
 
     from approx_counter_tpu_torch.io.fastx import read_fastx
     from approx_counter_tpu_torch.params import Params
-    from approx_counter_tpu_torch.pipeline import Engine, pass_cap
+    from approx_counter_tpu_torch.pipeline import (
+        CT,
+        Engine,
+        _round_up,
+        pass_cap,
+    )
     from approx_counter_tpu_torch.sample.sampler import sample_windows
 
     reads = read_fastx(fasta)
@@ -2506,34 +2511,50 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
         got = engine._count(windows_t, row_mask)
         launches[f"fused pass {tag}"] = launch_counts()["nfa_sliced"]
         n_keep = got[2]["n_keep"]
-        caps = sorted(key[1] for key in engine._graphs)
-        if (sk == 0) != (caps == [pass_cap(prm.limit)]):
-            raise AssertionError(f"{tag}: graphs at caps {caps}, n_keep "
-                                 f"{n_keep}")
+        first = pass_cap(prm.limit)
+        caps = [first] + ([_round_up(n_keep, CT)] if n_keep > first else [])
+        (fused,) = engine._graphs.values()
+        if ((sk == 0) != (len(caps) == 1) or list(engine._graphs) != [
+                ("fused", first, *windows_t.shape, sk > 0)]
+                or fused.runs != 1 or fused.graph is not None):
+            raise AssertionError(f"{tag}: segments {list(engine._graphs)}, "
+                                 f"n_keep {n_keep}, runs {fused.runs}")
         cpu = Engine(prm, "cpu") if on_cpu else None
         t0 = time.perf_counter()
         for cap in caps:
-            replayed = engine._pass_output(cap, windows_t, row_mask)
+            # the first cap's second run: captured, then replayed; a
+            # regrown cap: an eager rerun
+            ran = engine._pass_output(cap, windows_t, row_mask, cap != first)
             eager = engine._fused_body(windows_t, row_mask, cap).cpu().numpy()
-            if not np.array_equal(replayed, eager):
-                raise AssertionError(f"{tag} cap {cap}: replay != eager")
-            if cpu and not np.array_equal(replayed, cpu._pass_output(
+            if not np.array_equal(ran, eager):
+                raise AssertionError(f"{tag} cap {cap}: pass != eager")
+            if cpu and not np.array_equal(ran, cpu._pass_output(
                     cap, windows_t.cpu(), row_mask.cpu())):
                 raise AssertionError(f"{tag} cap {cap}: card != CPU")
         cpu_s = time.perf_counter() - t0
         if cpu:
             cpu.close()
-        graphs = {key[1]: engine._graphs[key] for key in engine._graphs}
+        again = engine._count(windows_t, row_mask)
+        if again[2] != got[2] or not all(
+                np.array_equal(a[i], b[i]) for a, b in zip(again[:2], got[:2])
+                for i in (0, 1)):
+            raise AssertionError(f"{tag}: a replayed pass != the eager first")
+        if (list(engine._graphs.values()) != [fused] or fused.graph is None
+                or fused.replays != 2):
+            raise AssertionError(f"{tag}: segments {list(engine._graphs)}, "
+                                 f"{fused.replays} replays")
         log(f"[fused] {tag}: n_keep {n_keep}, n_unique "
-            f"{got[2]['n_unique']}; graphs at caps {caps}: packed vector "
-            f"replayed == body eager on the card"
+            f"{got[2]['n_unique']}; caps {caps}, the first pass eager at "
+            f"each, one segment cached (cap {first}), no graph; then cap "
+            f"{first} captured and replayed"
+            + (f", cap {caps[-1]} an eager rerun, uncached" if len(caps) > 1
+               else "")
+            + ": packed vector == body eager on the card"
             + (" == body on the CPU" if cpu else "")
-            + f" ({len(replayed)} words at cap {caps[-1]}; {cpu_s:.1f} s); "
-            f"nfa_sliced launches in the first pass "
-            f"{launches[f'fused pass {tag}']}, a replay "
-            f"{ {c: g.launches for c, g in graphs.items()} }; capture ms "
-            f"(warm-up + capture) "
-            f"{ {c: round(g.capture_ms, 4) for c, g in graphs.items()} }")
+            + f" ({len(ran)} words at cap {caps[-1]}; {cpu_s:.1f} s), a "
+            f"replayed pass == the eager first; nfa_sliced launches in the "
+            f"first pass {launches[f'fused pass {tag}']}, a replay "
+            f"{fused.launches}; capture ms {fused.capture_ms:.4f}")
         runs[tag] = (engine, windows_t, row_mask, caps)
     torch.cuda.synchronize()
     log(f"[fused] device memory of the three engines, their batches, graphs "
@@ -2543,25 +2564,25 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
         f"reserved {(torch.cuda.memory_reserved() - res0) / 2**20:.1f} MiB "
         f"(the graphs' private pools among it)")
 
-    # (b) the eager body against the replay, in turns
+    # (b) the eager body against the pass, in turns
     for tag, (engine, windows_t, row_mask, caps) in runs.items():
         rows = []
         def eager(engine=engine, windows_t=windows_t, row_mask=row_mask,
                   caps=caps):
             # the same bodies, eagerly on the card, at each cap the pass
-            # replays, each fetched
+            # runs, each fetched
             for cap in caps:
                 engine._fused_body(windows_t, row_mask, cap).cpu()
 
-        for which in ("eager", "replay", "replay", "eager"):
+        for which in ("eager", "pass", "pass", "eager"):
             fn = eager if which == "eager" else lambda: engine._count(
                 windows_t, row_mask)
             ms, wall = timed_passes(fn, 10)
             rows.append(f"{which} {ms:.4f} / {wall:.4f}")
-        # the last graph by hand, outside the pass: the host time to enqueue
-        # the copy and the replay, and the replay alone by CUDA events
-        # (these replays pass the count wrapper's counter by)
-        fused = engine._fused_fn(caps[-1], *windows_t.shape)
+        # the first cap's graph by hand, outside the pass: the host time to
+        # enqueue the copy and the replay, and the replay alone by CUDA
+        # events (these replays pass the count wrapper's counter by)
+        (fused,) = engine._graphs.values()
         enqueue = []
         with torch.cuda.stream(engine._stream):
             for _ in range(10):
@@ -2579,7 +2600,7 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
         b.synchronize()
         log(f"[fused] {tag}, device-resident pass, ms a pass by CUDA events "
             f"/ host wall (10 passes after 2, in turns): {'; '.join(rows)}; "
-            f"the graph at cap {caps[-1]}: host enqueue of copy + replay "
+            f"the graph at cap {caps[0]}: host enqueue of copy + replay "
             f"{np.mean(enqueue):.4f} ms (least {min(enqueue):.4f}), replayed "
             f"alone {a.elapsed_time(b) / 10:.4f} ms by CUDA events")
 

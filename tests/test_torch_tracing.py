@@ -7,7 +7,7 @@ reckon: ``upload.bytes`` from the batches' and the pool's sizes,
 ``regrow.reruns`` from the passes whose ``n_keep`` outgrew the first cap.
 With no profiler recording, spans and counters make no range at all, and
 the exports are the same bytes either way.  The ``cuda`` test holds the
-warm-up and capture spans, which only a card has, to the engine's worker
+eager and capture spans, which only a card has, to the engine's worker
 thread; this file imports no JAX, so it runs on the GPU host with
 ``python -m pytest --noconftest -m cuda tests/test_torch_tracing.py``.
 """
@@ -87,7 +87,7 @@ def sparse_bytes(rows: int) -> int:
 
 
 def test_a_profiled_run_holds_every_span(tmp_path, fasta):
-    """Every span but the card's own (``warm-up``, ``capture``, ``upload
+    """Every span but the card's own (``eager``, ``capture``, ``upload
     wait``) on a CPU run with a pool, two runs and an exact export; the
     fetch on the engine's worker thread, the rest on the caller's."""
     rc, _, files, ranges = run_cli(tmp_path, fasta[0], "-mr", "2",
@@ -97,7 +97,7 @@ def test_a_profiled_run_holds_every_span(tmp_path, fasta):
     assert {"parse", "engine", "pool", "sample", "pack", "upload", "wait",
             "fetch", "export", "close", "prefetch", "start pass",
             "end pass"} <= names
-    assert not {"warm-up", "capture", "upload wait"} & names
+    assert not {"eager", "capture", "upload wait"} & names
     main = {t for n, t in ranges if n == "parse"}
     assert len(main) == 1
     assert {t for n, t in ranges if n == "fetch"}.isdisjoint(main)
@@ -177,19 +177,22 @@ def test_spans_and_marks_while_a_profiler_records():
 
 
 @pytest.mark.cuda
-def test_warm_up_and_capture_run_on_the_worker_thread(tmp_path, fasta):
-    """On the card: the graph's warm-up and capture are spans of the
-    engine's worker thread, which also fetches; the caller waits for it
-    and its uploads wait on the staging buffers."""
+def test_eager_and_capture_run_on_the_worker_thread(tmp_path, fasta):
+    """On the card: a segment's eager first run and its capture are spans
+    of the engine's worker thread, which also fetches, and no ``warm-up``
+    span is left; the caller waits for it and its uploads wait on the
+    staging buffers."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
     rc, _, files, ranges = run_cli(tmp_path, fasta[0], "-mr", "2",
                                    device="cuda")
     assert rc == 0 and len(files) == 8
     main = {t for n, t in ranges if n == "parse"}
-    worker = {t for n, t in ranges if n in ("warm-up", "capture")}
+    worker = {t for n, t in ranges if n in ("eager", "capture")}
     assert worker and worker.isdisjoint(main)
     assert {t for n, t in ranges if n == "fetch"} <= worker
     names = [n for n, _ in ranges]
-    assert names.count("warm-up") == names.count("capture") >= 1
+    assert names.count("eager") >= 1 and names.count("capture") >= 1
+    assert names.count("eager") == names.count("graph.eager=1")
+    assert "warm-up" not in names
     assert "upload wait" in names
