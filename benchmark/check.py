@@ -3,7 +3,9 @@
 After the window, a sample of the passes that ran in it, drawn from the
 run's seed, is worked out again by the plain reference
 (``reference/adaptfinder.py``), from the same FASTA file and each job's
-seed, and held to what the program wrote:
+seed, and held to what the program wrote (in a ``--multihost`` cell, rank
+0's exports and log, the passes' windows the multihost sample of
+``reference/multihost.py`` over every rank's files):
 
 - ``jobs_failed``: jobs that returned another exit code than 0 or raised;
 - ``passes_missing``: sampled passes that could not be judged;
@@ -34,6 +36,7 @@ import re
 import numpy as np
 
 from benchmark.reference import adaptfinder as ref
+from benchmark.reference import multihost as ref_multihost
 
 LIMITS = dict(jobs_failed=0, passes_missing=0, stats_wrong=0, rows_wrong=0,
               unranked_wrong=0)
@@ -185,6 +188,21 @@ def judge_pass(windows: np.ndarray, prm, out: dict, rng, sample: int,
                 unranked_wrong=unranked)
 
 
+def samplers(run):
+    """A function from a job's seed to the reference's sampler of that job
+    (``windows(i, end)``): in a ``--multihost`` run the multihost sample of
+    the run's input files at the cell's ranks (``reference/multihost.py``,
+    ``i`` the run), else the single-device one (``i`` the pass)."""
+    prm = run.prm
+    paths = run.fasta.split(",")
+    if prm.multihost:
+        files = [ref.read_fasta(path) for path in paths]
+        return lambda seed: ref_multihost.Sampler(
+            files, run.cell.chips, prm.sn, prm.sl, seed)
+    buf, offsets = ref.read_fasta(paths[0])
+    return lambda seed: ref.Sampler(buf, offsets, prm.sn, prm.sl, seed)
+
+
 def judge(run, outputs=None, control: str | None = None) -> dict:
     """The compared numbers of ``run`` (``harness.Run``).  ``outputs``
     maps (job, pass) to what stands in the program's place; by default
@@ -198,17 +216,18 @@ def judge(run, outputs=None, control: str | None = None) -> dict:
     nums = dict(jobs_failed=sum(j.rc != 0 for j in run.jobs),
                 passes_missing=0, stats_wrong=0, rows_wrong=0,
                 unranked_wrong=0)
-    buf, offsets = ref.read_fasta(run.fasta)
+    sampler_of = samplers(run)
     rng = np.random.default_rng(seed + 1)
-    samplers = {}
+    made = {}
     for j, p in picked:
         job = run.jobs[j]
         if job.rc != 0:
             nums["passes_missing"] += 1
             continue
-        sampler = samplers.setdefault(j, ref.Sampler(buf, offsets, prm.sn,
-                                                     prm.sl, job.seed))
-        windows = sampler.windows(p, run.passes[p][1] == "end")
+        if j not in made:
+            made = {j: sampler_of(job.seed)}
+        r, end = run.passes[p]
+        windows = made[j].windows(r if prm.multihost else p, end == "end")
         if control is not None:
             out = control_output(windows, prm, control, run.device)
         elif outputs is not None:

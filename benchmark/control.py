@@ -3,8 +3,9 @@
     python3 benchmark/control.py --workload <name> --seeds 1,2,3 \
         --seconds 3
 
-For each seed, in one process: a run of the cell at its own size with a
-short window (``harness.run_cell``), the program's compared numbers (the
+For each seed, in one process (a cell on several cards: in one launch of
+its ranks, ``ranks.py``): a run of the cell at its own size with a short
+window (``harness.run_cell``), the program's compared numbers (the
 lower readings), and the configuration's control (``check.control_kind``:
 the plain reference in the program's place with one guarantee broken,
 ``check.control_output``) judged on the same passes (the upper
@@ -17,6 +18,12 @@ import argparse
 import json
 import sys
 from pathlib import Path
+
+
+def readings(got, seed: int) -> dict:
+    """One seed's line: the program's and the control's numbers."""
+    return dict(seed=seed, jobs=got.result["attempted"], program=got.checks,
+                control=got.control, correct=got.result["correct"])
 
 
 def main(argv=None) -> int:
@@ -32,23 +39,33 @@ def main(argv=None) -> int:
     cell = harness.load_cell(args.workload)
     import torch
 
-    if not torch.cuda.is_available():
-        sys.stderr.write("no CUDA card\n")
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        sys.stderr.write(f"needs {cell.chips} CUDA card(s)\n")
         return 1
     from approx_counter_tpu_torch.config.cli import resolve_params
 
     kind = harness.check.control_kind(
         resolve_params(cell.config["args"] + ["reads.fa"]))
+    seeds = [int(s) for s in args.seeds.split(",")]
+    if cell.chips > 1:
+        from benchmark import ranks
+
+        got = ranks.launch(cell, seeds, args.seconds, False, control=True)
+        sys.stderr.write(got.err[0])
+        if got.rc != 0:
+            sys.stderr.write("".join(got.err[1:])[-4000:])
+            return got.rc
+        lines = (json.loads(x) for x in got.out[0].splitlines())
+    else:
+        lines = (readings(harness.run_cell(
+            cell, seed, args.seconds, False, torch.device("cuda", 0),
+            control=True), seed) for seed in seeds)
     lower, upper = {}, {}
-    for seed in (int(s) for s in args.seeds.split(",")):
-        got = harness.run_cell(cell, seed, args.seconds, False,
-                               torch.device("cuda", 0), control=True)
-        print(json.dumps(dict(seed=seed, jobs=got.result["attempted"],
-                              program=got.checks, control=got.control,
-                              correct=got.result["correct"])), flush=True)
-        for key, v in got.checks.items():
+    for line in lines:
+        print(json.dumps(line), flush=True)
+        for key, v in line["program"].items():
             lower[key] = max(lower.get(key, v), v)
-        for key, v in got.control.items():
+        for key, v in line["control"].items():
             upper[key] = min(upper.get(key, v), v)
     print(json.dumps(dict(workload=args.workload, control=kind,
                           lower=lower, upper=upper)), flush=True)

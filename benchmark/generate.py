@@ -13,6 +13,10 @@ reads:
   insertion or deletion at a uniform position, one after another), so a
   read keeps its length.
 
+- ``reads_per_file`` (optional): the reads are written as chunk files of
+  that many reads each, in read order (``write_chunks``), as a sequencer
+  writes a run's basecalled reads, instead of one file.
+
 Every other key (``why``, ``assumed``, ``reduced``) documents the mix.  The
 bytes depend only on the parameters and the seed.  Each record is one
 ``>read<i>`` header line and one sequence line.
@@ -78,8 +82,9 @@ def reads(params: dict, seed: int):
     return buf, offs
 
 
-def write_fasta(path: str, params: dict, seed: int) -> np.ndarray:
-    """Write the mix's FASTA file to ``path``; returns the read lengths."""
+def fasta_bytes(params: dict, seed: int):
+    """The mix's FASTA file as bytes (uint8), the read lengths, and the
+    byte offset at which each record starts."""
     buf, offs = reads(params, seed)
     n = len(offs) - 1
     headers = [f">read{i}\n" for i in range(n)]
@@ -96,5 +101,26 @@ def write_fasta(path: str, params: dict, seed: int) -> np.ndarray:
     out = np.empty(len(is_seq), np.uint8)
     out[is_seq] = buf
     out[~is_seq] = other
+    return out, np.diff(offs), seq_at - head_len
+
+
+def write_fasta(path: str, params: dict, seed: int) -> np.ndarray:
+    """Write the mix's FASTA file to ``path``; returns the read lengths."""
+    out, lengths, _ = fasta_bytes(params, seed)
     out.tofile(path)
-    return np.diff(offs)
+    return lengths
+
+
+def write_chunks(prefix: str, params: dict, seed: int):
+    """Write the mix's FASTA file as chunk files of ``reads_per_file``
+    reads each, in read order, as a sequencer writes a run's reads:
+    ``<prefix>_<j>.fa``, whose concatenation is ``write_fasta``'s file.
+    Returns the paths and the read lengths."""
+    out, lengths, starts = fasta_bytes(params, seed)
+    per = int(params["reads_per_file"])
+    cuts = np.append(starts[::per], len(out))
+    paths = []
+    for j in range(len(cuts) - 1):
+        paths.append(f"{prefix}_{j}.fa")
+        out[cuts[j]:cuts[j + 1]].tofile(paths[-1])
+    return paths, lengths

@@ -6,7 +6,7 @@ harness knows of it is found by name:
 - ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives): ``args``,
   the adaptFinder command line without input, output and seed;
 - ``traffic/<traffic>.json``: the parameters of ``generate.py``'s FASTA
-  file;
+  file (or, with ``reads_per_file``, its chunk files);
 - ``workloads/<cell>.json``: ``trace_jobs`` (jobs in a traced window) and
   ``check_passes`` (passes the check works out again);
 - ``metrics/<metric>.py``: a reader, ``read(run) -> float | None``, for
@@ -24,6 +24,11 @@ counts if it starts inside the window, which ends when the last one
 returns.  With ``trace`` the window runs under ``torch.profiler`` for at
 most ``trace_jobs`` jobs.  Standard error gets the set-up's phases and
 the cores the process kept busy over the window (``host_load``).
+
+That is ``run_cell``, a cell on one card.  A cell on several runs as that
+many rank processes of the program's ``--multihost`` path (``ranks.py``),
+each through the same ``Jobs`` and ``window``, and rank 0 through the
+same ``outcome``.
 """
 
 from __future__ import annotations
@@ -63,9 +68,30 @@ class Cell:
     per_layer: list
 
 
-def load_cell(name: str, root: Path = ROOT) -> Cell:
-    """The cell ``name`` of ``root/BENCHMARK.json`` and its files."""
+def load_spec(root: Path = ROOT, pending: bool = False) -> dict:
+    """``root/BENCHMARK.json``; with ``pending``, the cells of
+    ``root/benchmark/pending.json`` (measured and left out of it) moved in:
+    their configurations, cells and new per-layer metrics, and their names
+    added to the ``workloads`` of the metrics it lists under ``also_in``."""
     spec = json.loads((root / "BENCHMARK.json").read_text())
+    if not pending:
+        return spec
+    more = json.loads((root / "benchmark" / "pending.json").read_text())
+    names = [w["name"] for w in more["workloads"]]
+    spec["per_layer"] = [
+        dict(m, workloads=m["workloads"] + names)
+        if m["name"] in more["also_in"] else m for m in spec["per_layer"]]
+    for key in ("configs", "workloads", "per_layer"):
+        spec[key] = spec[key] + more[key]
+    return spec
+
+
+def load_cell(name: str, root: Path = ROOT) -> Cell:
+    """The cell ``name`` of ``root/BENCHMARK.json``, or of its
+    ``pending.json`` (``load_spec``), and its files."""
+    spec = load_spec(root)
+    if name not in {w["name"] for w in spec["workloads"]}:
+        spec = load_spec(root, pending=True)
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
@@ -114,12 +140,16 @@ class Job:
 
 
 class Jobs:
-    """Runs adaptFinder jobs on one FASTA file and device."""
+    """Runs adaptFinder jobs on one input (a FASTA file, or a comma-joined
+    list of them) and device; ``exports``: whether this process reads and
+    removes the exports (in a multihost cell rank 0 alone writes them)."""
 
-    def __init__(self, args: list, fasta: str, workdir: str, device):
+    def __init__(self, args: list, fasta: str, workdir: str, device,
+                 exports: bool = True):
         from approx_counter_tpu_torch.config.cli import resolve_params
 
         self.args, self.fasta, self.device = list(args), fasta, device
+        self.exports = exports
         self.out = os.path.join(workdir, "out")
         self.prm = resolve_params(self.argv(0))
         ends = ("start",) if self.prm.skip_end else ("start", "end")
@@ -154,7 +184,7 @@ class Jobs:
             # the card
             torch.cuda.empty_cache()
         exports = []
-        for r, end in self.passes:
+        for r, end in self.passes if self.exports else ():
             path = f"{self.out}_{r}.{end}"
             try:
                 with open(path, "rb") as f:
@@ -241,10 +271,12 @@ def host_load(own_cpu_s: float, window_s: float) -> str:
 
 
 def window(jobs: Jobs, seed: int, seconds: float, limit: int | None,
-           trace: bool):
+           trace: bool, agree=None):
     """Jobs back to back for ``seconds`` (and at most ``limit``); with
     ``trace`` under ``torch.profiler``, each job in a ``bench job`` range.
-    Returns the jobs, the window's seconds and the trace."""
+    Before each job ``agree`` (if given) turns this process's decision to
+    go on into the one every rank takes.  Returns the jobs, the window's
+    seconds and the trace."""
     import torch
 
     cuda = jobs.device.type == "cuda"
@@ -262,8 +294,11 @@ def window(jobs: Jobs, seed: int, seconds: float, limit: int | None,
     done = []
     cpu0 = time.process_time()
     start = time.perf_counter()
-    while time.perf_counter() - start < seconds and (
-            limit is None or len(done) < limit):
+    while True:
+        go = time.perf_counter() - start < seconds and (
+            limit is None or len(done) < limit)
+        if not (go if agree is None else agree(go)):
+            break
         with (torch.profiler.record_function("bench job") if trace
               else contextlib.nullcontext()):
             done.append(jobs.run(derive(seed, 2 + len(done))))
@@ -285,6 +320,23 @@ class Outcome:
     control: dict | None  # the numbers of the control, when asked for
 
 
+def write_inputs(traffic: dict, workdir: str, seed: int):
+    """The traffic's reads written from ``seed`` into ``workdir`` and
+    flushed to disk: one FASTA file, or with ``reads_per_file`` its chunk
+    files (``generate.write_chunks``).  Returns the program's input
+    argument (the paths, comma-joined) and the read lengths."""
+    if "reads_per_file" in traffic:
+        paths, lengths = generate.write_chunks(
+            os.path.join(workdir, "reads"), traffic, seed)
+    else:
+        paths = [os.path.join(workdir, "reads.fa")]
+        lengths = generate.write_fasta(paths[0], traffic, seed)
+    for path in paths:
+        with open(path, "rb") as f:
+            os.fsync(f.fileno())
+    return ",".join(paths), lengths
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float | None = None, control: bool = False) -> Outcome:
     """One run of ``cell`` in a new directory under ``TMPDIR``, removed
@@ -297,11 +349,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     t_start = time.perf_counter() if t_start is None else t_start
     workdir = tempfile.mkdtemp(prefix="bench-")
     try:
-        fasta = os.path.join(workdir, "reads.fa")
         t_fasta = time.perf_counter()
-        lengths = generate.write_fasta(fasta, cell.traffic, derive(seed, 0))
-        with open(fasta, "rb") as f:
-            os.fsync(f.fileno())
+        fasta, lengths = write_inputs(cell.traffic, workdir, derive(seed, 0))
         t_warm = time.perf_counter()
         jobs = Jobs(cell.config["args"], fasta, workdir, device)
         warm = jobs.run(derive(seed, 1))
@@ -323,39 +372,64 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                   windows_per_pass=windows_per_pass(jobs.prm, lengths),
                   setup_s=setup_s, window_s=window_s, jobs=done, trace=tr,
                   card=card_info(device))
-        metrics = {}
-        for m in (cell.per_layer if trace else cell.end_to_end):
-            value = reader(m["name"])(run)
-            if value is not None:
-                metrics[m["name"]] = dict(value=value, unit=m["unit"])
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        nums = check.judge(run)
-        nums["jobs_failed"] += int(warm.rc != 0)
-        dev = dict(platform="gpu" if device.type == "cuda" else device.type,
-                   kind=run.card["name"], count=cell.chips,
-                   memory_peak_bytes=peak)
-        result = dict(correct=check.correct(nums),
-                      attempted=len(done),
-                      failed=sum(j.rc != 0 for j in done),
-                      metrics=metrics, device=dev)
-        if tr is not None:
-            dev.update(busy_s=tr.busy_s(), window_s=window_s)
-            result["breakdown"] = tr.breakdown()
-        if done:
-            walls = np.array([j.wall_s for j in done]) * 1e3
-            sys.stderr.write(
-                f"{len(done)} jobs; wall ms at 10/25/50/75/90/100%: "
-                + " ".join(f"{v:.1f}" for v in np.percentile(
-                    walls, [10, 25, 50, 75, 90, 100])) + "\n")
-        failed = [j for j in [warm] + done if j.rc != 0]
-        if failed:
-            sys.stderr.write(f"{len(failed)} jobs failed; the first one's "
-                             f"errors:\n{failed[0].err[-2000:]}\n")
-        return Outcome(result, nums, run.card, check.judge(
-            run, control=check.control_kind(run.prm)) if control else None)
+        return outcome(run, warm, peak, control)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def outcome(run: Run, warm: Job, peak: int, control: bool) -> Outcome:
+    """What a run reports once its window has closed: the metrics of its
+    cell, the check, the device (``peak`` its memory), the breakdown.  The
+    CUDA cache is emptied before the check."""
+    import torch
+
+    cell, device, done, tr = run.cell, run.device, run.jobs, run.trace
+    metrics = {}
+    for m in (cell.per_layer if tr is not None else cell.end_to_end):
+        value = reader(m["name"])(run)
+        if value is not None:
+            metrics[m["name"]] = dict(value=value, unit=m["unit"])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    nums = check.judge(run)
+    nums["jobs_failed"] += int(warm.rc != 0)
+    dev = dict(platform="gpu" if device.type == "cuda" else device.type,
+               kind=run.card["name"], count=cell.chips,
+               memory_peak_bytes=peak)
+    result = dict(correct=check.correct(nums),
+                  attempted=len(done),
+                  failed=sum(j.rc != 0 for j in done),
+                  metrics=metrics, device=dev)
+    if tr is not None:
+        dev.update(busy_s=tr.busy_s(), window_s=run.window_s)
+        result["breakdown"] = tr.breakdown()
+    if done:
+        walls = np.array([j.wall_s for j in done]) * 1e3
+        sys.stderr.write(
+            f"{len(done)} jobs; wall ms at 10/25/50/75/90/100%: "
+            + " ".join(f"{v:.1f}" for v in np.percentile(
+                walls, [10, 25, 50, 75, 90, 100])) + "\n")
+    failed = [j for j in [warm] + done if j.rc != 0]
+    if failed:
+        sys.stderr.write(f"{len(failed)} jobs failed; the first one's "
+                         f"errors:\n{failed[0].err[-2000:]}\n")
+    return Outcome(result, nums, run.card, check.judge(
+        run, control=check.control_kind(run.prm)) if control else None)
+
+
+def report(got: Outcome) -> None:
+    """Print a run's card line and result line on standard output, the
+    compared numbers with their limits last on standard error and last in
+    the result line."""
+    result, nums, card = got.result, got.checks, got.card
+    card["memory_peak_bytes"] = result["device"]["memory_peak_bytes"]
+    print(json.dumps(dict(card=card)))
+    result["checks"] = {k: dict(value=v, limit=check.LIMITS[k])
+                        for k, v in nums.items()}
+    for k, v in nums.items():
+        sys.stderr.write(f"check {k}: {v} (limit {check.LIMITS[k]})\n")
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
 
 
 def forbidden_modules() -> list:

@@ -1,4 +1,4 @@
-"""Run one benchmark cell once on an NVIDIA GPU.
+"""Run one benchmark cell once on NVIDIA GPUs.
 
     python3 benchmark/run.py --workload <name> --seed <n> --seconds <s> \
         --trace <0|1>
@@ -9,17 +9,21 @@ last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``, each compared number with its limit;
 the numbers are also the last lines of standard error.  An earlier line
-of standard output gives the card.  Without a CUDA card, with fewer cards
-than the cell takes, or with JAX or the JAX package loaded once the
-window has closed, it prints no result and exits 1.
+of standard output gives the card.  A cell on one card runs in this
+process on ``cuda:0``; a cell on more runs as that many ranks of the
+program's ``--multihost`` path, one a card (``ranks.py``), whose rank 0's
+lines this process prints once every rank has ended well.  Without a CUDA
+card, with fewer cards than the cell takes, with a rank that failed or
+hung, or with JAX or the JAX package loaded once the window has closed,
+it prints no result and exits 1 (or the failed rank's exit code).
 """
 
 import time
 
 T_START = time.perf_counter()
+T_MONO = time.monotonic()
 
 import argparse  # noqa: E402
-import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -42,21 +46,43 @@ def main(argv=None) -> int:
         sys.stderr.write(f"{args.workload} needs {cell.chips} CUDA card(s); "
                          f"found {torch.cuda.device_count()}\n")
         return 1
+    if cell.chips > 1:
+        return run_ranks(cell, args)
     got = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                            torch.device("cuda", 0), t_start=T_START)
-    result, nums, card = got.result, got.checks, got.card
     found = harness.forbidden_modules()
     if found:
         sys.stderr.write(f"loaded after the window: {', '.join(found)}\n")
         return 1
-    card["memory_peak_bytes"] = result["device"]["memory_peak_bytes"]
-    print(json.dumps(dict(card=card)))
-    result["checks"] = {k: dict(value=v, limit=harness.check.LIMITS[k])
-                        for k, v in nums.items()}
-    for k, v in nums.items():
-        sys.stderr.write(f"check {k}: {v} (limit {harness.check.LIMITS[k]})\n")
-    sys.stderr.flush()
-    print(json.dumps(result), flush=True)
+    harness.report(got)
+    return 0
+
+
+def run_ranks(cell, args) -> int:
+    """The cell as ``cell.chips`` ranks (``ranks.launch``): the other ranks'
+    logs, then rank 0's on standard error, and rank 0's lines on standard
+    output once every rank has ended with 0."""
+    from benchmark import harness, ranks
+
+    if "--multihost" not in cell.config["args"]:
+        sys.stderr.write(f"{args.workload} takes {cell.chips} cards but its "
+                         "configuration is not --multihost\n")
+        return 1
+    got = ranks.launch(cell, [args.seed], args.seconds, bool(args.trace),
+                       t0=T_MONO)
+    for r, err in enumerate(got.err[1:], 1):
+        sys.stderr.write("".join(f"[rank {r}] {line}\n"
+                                 for line in err[-4000:].splitlines()))
+    sys.stderr.write(got.err[0])
+    found = harness.forbidden_modules()
+    if found:
+        sys.stderr.write(f"loaded after the window: {', '.join(found)}\n")
+        return 1
+    if got.rc != 0:
+        sys.stderr.write(f"a rank failed (exit code {got.rc}): no result\n")
+        return got.rc
+    sys.stdout.write(got.out[0])
+    sys.stdout.flush()
     return 0
 
 

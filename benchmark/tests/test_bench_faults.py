@@ -1,27 +1,50 @@
-"""``correct`` at a size the CPU holds: true for the program as it is,
-false for each cell's control and for each fault a cell can have,
+"""``correct`` at a size the CPU holds, in each cell of ``BENCHMARK.json``
+and ``pending.json``: true for the program as it is, false for each
+cell's control and for each fault a cell can have,
 planted in the timed path underneath a whole run (the harness's look for
-a card skipped, the rest of a run driven as on the card).
+a card skipped, the rest of a run driven as on the card; a cell on four
+cards as four gloo ranks of ``ranks.launch``, with the fault planted in
+every rank).
 
 The faults: a pass that returns an earlier pass's answer unchanged (a
 step that returns its state unchanged); half of each batch's windows left
-out; an answer altered where it is produced (one count of each export).
-There is no exchange between chips to leave out: every cell takes one."""
+out; an answer altered where it is produced (one count of each export);
+in a cell on several cards, the exchange between them left out (each
+rank keeps the buckets it would send and reads them as received)."""
 
 import json
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from benchmark import check, harness
+from benchmark.tests.conftest import launch
 
-CELLS = [w["name"] for w in json.loads(
-    (harness.ROOT / "BENCHMARK.json").read_text())["workloads"]]
+WORKLOADS = [w for spec in (harness.ROOT / "BENCHMARK.json",
+                            harness.BENCH / "pending.json")
+             for w in json.loads(spec.read_text())["workloads"]]
+CELLS = [w["name"] for w in WORKLOADS]
+MULTI = {w["name"] for w in WORKLOADS if w["chips"] > 1}
+SEED = 2**31 + 4242
 
-
-def run(cell, control=None):
-    return harness.run_cell(cell, 2**31 + 4242, 1.0, False,
-                            torch.device("cpu"), control=control)
+def run(cell, control=None, fault=None):
+    """One run's ``Outcome``-like numbers: ``result``, ``checks`` and
+    ``control``."""
+    if cell.chips == 1:
+        return harness.run_cell(cell, SEED, 1.0, False, torch.device("cpu"),
+                                control=control)
+    got = launch(cell, control=bool(control), setup=(
+        "from benchmark.tests import test_bench_faults as t\n"
+        f"t.{fault.__name__}(t.SimpleNamespace(setattr=setattr))"
+        if fault else ""))
+    assert got.rc == 0, got.err
+    line = json.loads(got.out[0].splitlines()[-1])
+    if control:
+        return SimpleNamespace(result=dict(correct=line["correct"]),
+                               checks=line["program"],
+                               control=line["control"])
+    return SimpleNamespace(result=line, checks=line["checks"], control=None)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -60,6 +83,7 @@ def half_batch(monkeypatch):
 
 def altered(monkeypatch):
     from approx_counter_tpu_torch import pipeline
+    from approx_counter_tpu_torch.dist import multihost
 
     real = pipeline.report_and_export_end
 
@@ -72,11 +96,26 @@ def altered(monkeypatch):
         return real(*args, **kw)
 
     monkeypatch.setattr(pipeline, "report_and_export_end", plus_one)
+    monkeypatch.setattr(multihost, "report_and_export_end", plus_one)
 
 
-@pytest.mark.parametrize("fault", [stale, half_batch, altered])
-@pytest.mark.parametrize("name", CELLS)
+def no_exchange(monkeypatch):
+    from approx_counter_tpu_torch.dist import mesh
+
+    monkeypatch.setattr(mesh, "exchange", lambda send, group=None:
+                        send.clone())
+
+
+FAULTS = [(f, name) for name in CELLS
+          for f in [stale, half_batch, altered]
+          + ([no_exchange] if name in MULTI else [])]
+
+
+@pytest.mark.parametrize("fault,name", FAULTS,
+                         ids=[f"{n}-{f.__name__}" for f, n in FAULTS])
 def test_fault_is_not_correct(tiny, monkeypatch, name, fault):
-    fault(monkeypatch)
-    got = run(tiny(name))
+    cell = tiny(name)
+    if cell.chips == 1:
+        fault(monkeypatch)
+    got = run(cell, fault=fault)
     assert not got.result["correct"], (fault.__name__, got.checks)

@@ -7,6 +7,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 from benchmark.harness import BENCH, ROOT
 
 RUN = textwrap.dedent(r"""
@@ -52,23 +54,24 @@ def result_lines(stdout: str) -> list:
     return [x for x in stdout.splitlines() if x.startswith('{"correct"')]
 
 
-def test_no_card_no_result(tmp_path):
-    """Here there is no card: no result, a non-zero exit.  Likewise in a
-    directory that holds only ``BENCHMARK.json`` and ``benchmark/``."""
+@pytest.mark.parametrize("cell", ["porechop_abi.mr10",
+                                  "porechop_abi.multihost4"])
+def test_no_card_no_result(tmp_path, cell):
+    """Here there is no card: no result, a non-zero exit, and the cards
+    the cell takes named.  Likewise in a directory that holds only
+    ``BENCHMARK.json`` and ``benchmark/``."""
     import torch
 
     if torch.cuda.is_available():
-        import pytest
-
         pytest.skip("a CUDA card is present")
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
     shutil.copytree(BENCH, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     for root in (ROOT, tmp_path):
         out = subprocess.run(
-            [sys.executable, "benchmark/run.py", "--workload",
-             "porechop_abi.mr10", "--seed", "1", "--seconds", "1",
-             "--trace", "0"], cwd=root, capture_output=True, text=True,
-            timeout=300)
-        assert out.returncode != 0
+            [sys.executable, "benchmark/run.py", "--workload", cell,
+             "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=root,
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 1
+        assert "CUDA card(s); found 0" in out.stderr
         assert result_lines(out.stdout) == []
