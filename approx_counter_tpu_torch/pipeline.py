@@ -28,9 +28,9 @@ runs inside a span (``tracing.span``, a ``torch.profiler`` range while a
 profiler records) named ``"<end> pass"``, the next pass's sampling and
 upload inside one named ``"prefetch"``, and each layer's work inside its
 own (``parse``, ``engine``, ``pool``, ``sample``, ``pack``, ``upload``,
-``wait``, ``eager``, ``capture``, ``fetch``, ``export``, ``close``), with
-the counters ``upload.bytes``, ``regrow.reruns`` and ``graph.eager`` as
-marks among them, so
+``wait``, ``eager``, ``capture``, ``rerun``, ``fetch``, ``export``,
+``close``), with the counters ``upload.bytes``, ``regrow.reruns``,
+``graph.eager`` and ``approx.launches`` as marks among them, so
 a ``--profile`` trace shows where each begins and ends.
 
 Selection is the reference's top-``limit`` or, with ``-sk N``, solid mode:
@@ -646,10 +646,16 @@ class Engine:
     def _count(self, windows_t, row_mask, positions=None):
         """The pass on device-resident windows (``[m, n]`` uint8, bool row
         mask): the sharded step with the passes' own process group,
-        else the fused pass."""
+        else the fused pass.  The mark ``approx.launches`` gives the count
+        kernel's launches the pass made, a discarded first-cap run's and a
+        graph's replays included."""
+        before = approx_counts.launches
         if self._group is not None:
-            return self._sharded_pass(windows_t, row_mask, positions)
-        return self._fused_pass(windows_t, row_mask)
+            got = self._sharded_pass(windows_t, row_mask, positions)
+        else:
+            got = self._fused_pass(windows_t, row_mask)
+        count("approx.launches", approx_counts.launches - before)
+        return got
 
     def _unpacked(self, arr: np.ndarray, cap: int):
         """``count_one_end``'s result from a pass's packed output at
@@ -671,10 +677,11 @@ class Engine:
         """The JAX package's pass: the fixed-shape program at the first
         cap, one fetch of its packed output, and again at ``n_keep``
         rounded up to ``CT`` while ``n_keep`` outgrows the cap (a rerun,
-        never captured)."""
+        never captured, in a span ``rerun`` through its fetch)."""
         cap, rerun = pass_cap(self.prm.limit), False
         while True:
-            arr = self._pass_output(cap, windows_t, row_mask, rerun)
+            with span("rerun") if rerun else contextlib.nullcontext():
+                arr = self._pass_output(cap, windows_t, row_mask, rerun)
             n_keep = int(arr[1])
             if n_keep <= cap:
                 return self._unpacked(arr, cap)
@@ -730,15 +737,17 @@ class Engine:
         ``STATS`` after it, and again at the sizes ``mesh.next_sizes``
         gives while a bucket overflows or ``n_keep`` outgrows the cap.
         Every rank reads the same replicated numbers, so every rank takes
-        the same reruns."""
+        the same reruns; each is a span ``rerun`` through its fetch."""
         n_ranks = mesh.process_count()
         k = self.prm.k
         sizes = [(pass_cap(self.prm.limit),
                   mesh.bucket_slots(positions, n_ranks))]
         while True:
             cap, bucket = sizes[-1]
-            arr = self._sharded_output(cap, bucket, windows_t, row_mask,
-                                       len(sizes) > 1)
+            rerun = len(sizes) > 1
+            with span("rerun") if rerun else contextlib.nullcontext():
+                arr = self._sharded_output(cap, bucket, windows_t, row_mask,
+                                           rerun)
             stats = arr[pass_words(cap, k):].reshape(n_ranks, -1)
             nxt = mesh.next_sizes(
                 bool(stats[0, mesh.STATS.index("overflow")]), int(arr[1]),
