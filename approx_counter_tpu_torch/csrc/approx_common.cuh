@@ -28,6 +28,10 @@ struct TextMasks {
   uint32_t x0, x1, vm;
 };
 
+__device__ __forceinline__ TextMasks text_masks(uint32_t c) {
+  return TextMasks{(c & 1u) - 1u, ((c >> 1) & 1u) - 1u, c < 4u ? kFull : 0u};
+}
+
 __device__ __forceinline__ uint32_t eq_select(uint32_t mask0, uint32_t mask1,
                                               TextMasks t) {
   return (mask0 ^ t.x0) & (mask1 ^ t.x1) & t.vm;
@@ -45,7 +49,7 @@ __device__ __forceinline__ void scan_text(const uint8_t* __restrict__ windows_t,
   for (int j = 0; j < m; ++j) {
     const uint32_t c = c_next;
     if (j + 1 < m) c_next = in_range ? col[static_cast<size_t>(j + 1) * W] : 5u;
-    step(TextMasks{(c & 1u) - 1u, ((c >> 1) & 1u) - 1u, c < 4u ? kFull : 0u});
+    step(text_masks(c));
   }
 }
 

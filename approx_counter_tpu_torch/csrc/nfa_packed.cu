@@ -17,9 +17,12 @@
 // of word kWords * blockIdx.y + b / PACK, candidate 32 * blockIdx.y + b
 // (approx::swar_lane_masks), two ballots per pattern position build the 32
 // candidates' base planes, and the sliced NFA's core (nfa_sliced.cuh) runs
-// them: its shifts are plane indices, and its constant levels count the
-// alignment to the empty substring where k <= maxerr.  About 150 ALU-pipe
-// ops per 32 candidates and text symbol at k = 16, maxerr 2, at every PACK.
+// them from its match table in shared memory (six rows, one per text
+// symbol, built once per block from the planes; layout and bank rule in
+// nfa_sliced.cuh): its shifts are plane indices, and its constant levels
+// count the alignment to the empty substring where k <= maxerr.  About 86
+// ALU-pipe ops per 32 candidates and text symbol at k = 16, maxerr 2, at
+// every PACK.
 // That integer logic is what bounds it; the text is one byte per window
 // and step.  out[PACK * n + f] is candidate PACK * n + f's count, as
 // before.

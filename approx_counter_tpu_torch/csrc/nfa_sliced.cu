@@ -4,15 +4,16 @@
 // TPU kernel behind approx_counts_pallas_sliced).  It computes the same
 // function: for each candidate k-mer c, the sum over valid windows w of
 // max(0, MAXERR + 1 - d_min(c, w)), where d_min is the least edit distance
-// between c and any substring of w.  Text symbols >= 4 (N, pad) match
-// nothing.  The result is int32 and exact.
+// between c and any substring of w.  Text symbols are 0-5; 4 (N) and 5
+// (pad) match nothing.  The result is int32 and exact.
 //
 // Its input is the TPU kernel's: the candidates' base bit-planes, built on
 // the host (build_sliced_planes), one [K] pair per 32-candidate word.  A
 // block is 256 windows of one word: its planes come into shared memory
 // with one load, then into each thread's registers, and the level-NFA core
-// (nfa_sliced.cuh, shared with nfa_packed.cu) runs the text loop, with its
-// note on layout and bound.
+// (nfa_sliced.cuh, shared with nfa_packed.cu) builds the block's match
+// table from them and runs the text loop, with its note on layout and
+// bound.
 //
 // Built by approx_counter_tpu_torch/kernels/_build.py with nvcc for sm_90a,
 // one shared library per (KMER, MAXERR), and called through ctypes.

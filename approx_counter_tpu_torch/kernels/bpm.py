@@ -330,6 +330,24 @@ def approx_counts_myers_sliced_ref(peq: torch.Tensor, windows_t: torch.Tensor,
     return counts.reshape(c_pad)[:C].to(torch.int32)
 
 
+#: Text symbols: bases 0-3, N 4, pad 5 (``core/codec.py``).
+N_SYMBOLS = 6
+
+
+def build_match_table(P0: torch.Tensor, P1: torch.Tensor) -> torch.Tensor:
+    """The sliced level-NFA core's match table from the base bit-planes
+    (``build_sliced_planes``): int64 [N_SYMBOLS, n_words, k] holding uint32
+    values.  Bit c of ``table[s, w, i]`` is set iff candidate (32w + c)'s
+    base at pattern position i is s; rows 4 (N) and 5 (pad) are zero, so
+    those symbols match nothing."""
+    rows = []
+    for s in range(4):
+        x0 = ((s & 1) - 1) & _M32          # all ones iff bit 0 of s == 0
+        x1 = (((s >> 1) & 1) - 1) & _M32   # all ones iff bit 1 of s == 0
+        rows.append((P0 ^ x0) & (P1 ^ x1))
+    return torch.stack(rows + [torch.zeros_like(P0)] * (N_SYMBOLS - 4))
+
+
 def approx_counts_nfa_sliced_ref(peq: torch.Tensor, windows_t: torch.Tensor,
                                  window_valid: torch.Tensor, k: int,
                                  maxerr: int = MAXERR) -> torch.Tensor:
@@ -339,30 +357,28 @@ def approx_counts_nfa_sliced_ref(peq: torch.Tensor, windows_t: torch.Tensor,
     (``build_sliced_planes``, C padded with zero rows), one state word
     R[d][i] per level d <= min(maxerr, k - 1) and pattern position i >= d
     (positions i < d are the all-ones constant), int64 holding uint32.  Per
-    text symbol, Rn_0[i] = R_0[i-1] & Eq[i] and
+    text symbol c (0-5), Eq[i] is row c of the word's match table
+    (``build_match_table``), Rn_0[i] = R_0[i-1] & Eq[i] and
     Rn_d[i] = (R_d[i-1] & Eq[i]) | R_{d-1}[i] | R_{d-1}[i-1] | Rn_{d-1}[i-1],
     the shifts of the word form being the index i - 1; h_d gathers
     Rn_d[k-1].  Levels above k - 1 hit every valid window.  Same arguments
-    and result as ``approx_counts_ref``."""
+    and result as ``approx_counts_ref``, for windows of symbols 0-5."""
     C = peq.shape[0]
     m, W = windows_t.shape
     dev = peq.device
     c_pad = -(-C // 32) * 32
     if c_pad != C:  # zero rows decode as poly-A: garbage counts, sliced off
         peq = torch.cat([peq, peq.new_zeros((c_pad - C, 4))])
-    P0, P1 = build_sliced_planes(peq, k)          # [n_words, k] each
+    # [k, n_words, N_SYMBOLS]: position i's masks of every symbol
+    table = build_match_table(*build_sliced_planes(peq, k)).permute(2, 1, 0)
     n_words = c_pad // 32
     levels = min(maxerr, k - 1) + 1
     zero = torch.zeros((n_words, W), dtype=torch.int64, device=dev)
     R = [[zero] * k for _ in range(levels)]       # entries i < d unread
     h = [zero] * levels
     for j in range(m):
-        c = windows_t[j].to(torch.int64)[None, :]
-        x0 = ((c & 1) - 1) & _M32          # all ones iff text bit 0 == 0
-        x1 = (((c >> 1) & 1) - 1) & _M32   # all ones iff text bit 1 == 0
-        vm = ((c - 4) >> 63) & _M32        # N and pad match nothing
-        eq = [(P0[:, i:i + 1] ^ x0) & (P1[:, i:i + 1] ^ x1) & vm
-              for i in range(k)]
+        c = windows_t[j].to(torch.int64)
+        eq = [table[i][:, c] for i in range(k)]
         Rn = [[eq[0]] + [R[0][i - 1] & eq[i] for i in range(1, k)]]
         for d in range(1, levels):
             row = [zero] * d
@@ -450,7 +466,8 @@ def approx_counts(peq: torch.Tensor, windows_t: torch.Tensor,
                   maxerr: int = MAXERR) -> torch.Tensor:
     """int32 [C] approximate counts: the sliced level NFA
     (``csrc/nfa_sliced.cu``) for CUDA tensors, the plain version for CPU
-    tensors.  Any C: past 65,535 words (2,097,120 candidates) the words
+    tensors.  Window symbols are 0-5: the kernel reads each from a six-row
+    match table.  Any C: past 65,535 words (2,097,120 candidates) the words
     are split over several launches (``word_launches``), each writing its
     own slice of the counts.  ``approx_counts.launches`` counts the kernel
     launches."""

@@ -4,7 +4,8 @@ search-scheme oracle.
 
 ``approx_counts_nfa_sliced_ref`` repeats, step for step, the core that
 ``csrc/nfa_sliced.cu`` and ``csrc/nfa_packed.cu`` share
-(``csrc/nfa_sliced.cuh``): 32 candidates a word, one state word per
+(``csrc/nfa_sliced.cuh``): 32 candidates a word, each text symbol's
+matches read from the word's six-row match table, one state word per
 level and pattern position, the word form's shifts as plane indices, the
 levels above k - 1 constant.  On the adversarial windows of
 ``gpu_check.searchscheme_case`` (edge occurrences, one edit away, short
@@ -105,6 +106,32 @@ def test_sliced_ref_matches_packed_ref(k, pack, maxerr):
     args = _args(*_case(k, maxerr), k, maxerr)
     assert torch.equal(bpm.approx_counts_nfa_sliced_ref(*args),
                        bpm.approx_counts_packed_ref(*args, pack, "nfa"))
+
+
+@pytest.mark.parametrize("symbol", range(bpm.N_SYMBOLS))
+@pytest.mark.parametrize("k", KS)
+def test_match_table_rows(k, symbol):
+    """Row s of the core's match table == the masks the core once computed
+    at every step, (P0 ^ x0) & (P1 ^ x1) & vm for text symbol s, and bit c
+    of word i set iff candidate c's base i is s: rows 4 (N) and 5 (pad)
+    are zero."""
+    codes = _case(k, 0)[0]
+    peq = bpm.build_peq(torch.from_numpy(codes), k)
+    peq = torch.cat([peq, peq.new_zeros((64 - C, 4))])
+    P0, P1 = bpm.build_sliced_planes(peq, k)
+    row = bpm.build_match_table(P0, P1)[symbol]
+    assert row.shape == (2, k) and row.dtype == torch.int64
+    m32 = 0xFFFFFFFF
+    x0 = ((symbol & 1) - 1) & m32
+    x1 = (((symbol >> 1) & 1) - 1) & m32
+    vm = m32 if symbol < 4 else 0
+    assert torch.equal(row, (P0 ^ x0) & (P1 ^ x1) & vm)
+    bases = (torch.from_numpy(codes)[:, None]
+             >> (2 * (k - 1 - torch.arange(k)))) & 3            # [C, k]
+    bits = (row.reshape(2, 1, k) >> torch.arange(32)[None, :, None]) & 1
+    assert torch.equal(bits.reshape(64, k)[:C].bool(), bases == symbol)
+    # the zero peq rows that pad C to a word read as poly-A
+    assert (bits.reshape(64, k)[C:] == int(symbol == 0)).all()
 
 
 @pytest.mark.parametrize("k", [2, 16])
