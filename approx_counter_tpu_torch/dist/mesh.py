@@ -357,7 +357,8 @@ def full_step(engine, windows: np.ndarray, n_valid: int):
     ``(exact_sel, approx_sel, stats)`` as ``Engine.count_one_end`` gives
     them, the same on every rank.  ``engine`` is built with
     ``sharded=True``; ``windows`` is this rank's padded shard, the only
-    windows the rank uploads.  The engine runs segments A, B and C above
+    windows the rank uploads.  The pass is ``engine.start_pass(...)
+    .finish()``: on the engine's worker it runs segments A, B and C above
     as CUDA graphs (eagerly on the CPU) with the three collectives between
     them on the passes' own process group (``pass_group``), fetches one
     packed vector, and reruns at the sizes ``next_sizes`` gives; at one

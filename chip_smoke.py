@@ -139,10 +139,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      to the first; (b) the device-resident pass, the same bodies run
      eagerly at each of its caps against the pass in turns, by CUDA
      events and host wall, the graph's host enqueue time and its replay
-     alone, launches a replay, capture ms and the peak device memory of
-     the graphs; (c) one pass under ``torch.profiler``: one graph launch
-     and no kernel launch on the calling thread, the replay's kernels by
-     name, the busy share.
+     alone, launches a replay and the peak device memory of the graphs;
+     (c) one pass under ``torch.profiler``: one graph launch and no
+     kernel launch on the calling thread, the replay's kernels by name,
+     the busy share.
 Every single-device pass of the phases runs the fused pass: eager at a
 shape's first pass, captured as a CUDA graph at its second and replayed at
 every later one, and eager again at a regrown cap, so each pass launches
@@ -2474,12 +2474,22 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
     bodies run eagerly at each of its caps, against the pass, in turns
     (eager, pass, pass, eager): ms by CUDA events and host wall a pass;
     the graph's host enqueue time and its replay alone by CUDA events;
-    the kernel's launches a replay, the capture's ms and the device memory
+    the kernel's launches a replay and the device memory
     of the three engines' graphs.  (c) One default pass under
     ``torch.profiler``: this thread's runtime calls (one graph launch, no
     kernel launch), the replay's kernels by name and the pass's
     device-busy share.  Returns the kernel's launches in each first
-    pass."""
+    pass.  The phase calls the engines' passes on this thread, on a stream
+    of its own, as their worker runs them on the engine's: a capture on
+    the default stream is refused."""
+    import torch
+
+    with torch.cuda.stream(torch.cuda.Stream()):
+        return _phase_fused(fasta, out_dir)
+
+
+def _phase_fused(fasta: str, out_dir: str) -> dict:
+    """``phase_fused`` on the current stream."""
     import torch
 
     from approx_counter_tpu_torch.io.fastx import read_fastx
@@ -2554,7 +2564,7 @@ def phase_fused(fasta: str, out_dir: str) -> dict:
             + f" ({len(ran)} words at cap {caps[-1]}; {cpu_s:.1f} s), a "
             f"replayed pass == the eager first; nfa_sliced launches in the "
             f"first pass {launches[f'fused pass {tag}']}, a replay "
-            f"{fused.launches}; capture ms {fused.capture_ms:.4f}")
+            f"{fused.launches}")
         runs[tag] = (engine, windows_t, row_mask, caps)
     torch.cuda.synchronize()
     log(f"[fused] device memory of the three engines, their batches, graphs "

@@ -137,8 +137,11 @@ def test_a_regrown_pass_is_one_rerun_span(monkeypatch, solid):
     n, m, n_valid = 64, 41, 57
     engine = Engine(Params(k=12, sl=m - 1, limit=30, solid_km=solid), "cpu")
     try:
+        # every thread: the passes count on the engine's worker
         with torch.profiler.profile(
-                activities=[ProfilerActivity.CPU]) as prof:
+                activities=[ProfilerActivity.CPU],
+                experimental_config=torch.profiler._ExperimentalConfig(
+                    profile_all_threads=True)) as prof:
             _, _, stats = engine.count_one_end(_windows(n, m, 7), n_valid)
     finally:
         engine.close()

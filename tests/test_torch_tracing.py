@@ -193,6 +193,7 @@ def test_eager_and_capture_run_on_the_worker_thread(tmp_path, fasta):
     assert {t for n, t in ranges if n == "fetch"} <= worker
     names = [n for n, _ in ranges]
     assert names.count("eager") >= 1 and names.count("capture") >= 1
-    assert names.count("eager") == names.count("graph.eager=1")
+    # -mr 2: four passes, each at most one eager run or one capture
+    assert names.count("eager") + names.count("capture") <= 4
     assert "warm-up" not in names
     assert "upload wait" in names

@@ -284,8 +284,9 @@ def test_a_failed_run_waits_for_its_prefetched_pass(tmp_path, monkeypatch):
 
 
 def test_count_one_end_counts_on_the_callers_thread(monkeypatch):
-    """``count_one_end`` (the multihost step's pass) counts on the calling
-    thread, where ``start_pass`` counts on the worker; both give the same."""
+    """``count_one_end`` does not count on the calling thread: it is
+    ``start_pass(...).finish()``, so its pass runs on the engine's worker
+    thread as a dispatched one does, and both give the same."""
     import threading
 
     engine = Engine(Params(k=5, sl=20, limit=7), "cpu")
@@ -298,10 +299,55 @@ def test_count_one_end_counts_on_the_callers_thread(monkeypatch):
 
     monkeypatch.setattr(Engine, "_count", spy)
     batch = sampled_batch(15, 8, 21, 8, True)
-    inline = engine.count_one_end(batch, 8)
-    pending = engine.start_pass(batch, 8).finish()
-    assert threads[0] is threading.current_thread() is not threads[1]
+    try:
+        inline = engine.count_one_end(batch, 8)
+        pending = engine.start_pass(batch, 8).finish()
+    finally:
+        engine.close()
+    assert len(threads) == 2 and threads[0] is threads[1]
+    assert threads[0] is not threading.current_thread()
     for a, b in zip(inline[:2], pending[:2]):
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
     assert inline[2] == pending[2]
+
+
+@pytest.mark.parametrize("mode", ["mr2", "from_exact", "multihost"])
+def test_every_segment_runs_on_the_worker_thread(tmp_path, monkeypatch,
+                                                 mode):
+    """Through the CLI's ``run`` on the CPU, every segment of every pass
+    (``_FusedGraph.run``) runs on the engine's worker thread and none on
+    the calling one: ``-mr 2`` (pipelined passes), ``--from-exact`` (the
+    resume pass) and a one-rank ``--multihost`` run (both ends in
+    flight)."""
+    import threading
+
+    from approx_counter_tpu_torch import pipeline
+    from approx_counter_tpu_torch.__main__ import run
+    from approx_counter_tpu_torch.config.cli import resolve_params
+
+    rng = np.random.default_rng(23)
+    fa = tmp_path / "r.fasta"
+    fa.write_text("".join(
+        f">r{i}\n{''.join('ACGT'[c] for c in rng.integers(0, 4, 90))}\n"
+        for i in range(40)))
+    argv = [str(fa), "-k", "6", "-sl", "30", "-sn", "30", "-lim", "10",
+            "-v", "0", "--seed", "4"]
+    if mode == "from_exact":
+        assert run(resolve_params(argv + ["-o", str(tmp_path / "a"), "-e",
+                                          str(tmp_path / "e")]), "cpu") == 0
+    extra = {"mr2": ["-mr", "2"],
+             "from_exact": ["--from-exact", str(tmp_path / "e_0.start")],
+             "multihost": ["--multihost"]}[mode]
+    run_seg, threads = pipeline._FusedGraph.run, []
+
+    def spy(self, *values):
+        threads.append(threading.current_thread())
+        return run_seg(self, *values)
+
+    monkeypatch.setattr(pipeline._FusedGraph, "run", spy)
+    prm = resolve_params(argv + extra + ["-o", str(tmp_path / "o")])
+    assert run(prm, "cpu") == 0
+    assert len(threads) == (4 if mode == "mr2" else 2)
+    assert threading.current_thread() not in threads
+    assert all(t.name.startswith("pass") for t in threads)
