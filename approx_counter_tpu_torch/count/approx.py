@@ -21,19 +21,24 @@ import torch
 
 from approx_counter_tpu_torch.core.ordering import compare_count_order
 from approx_counter_tpu_torch.kernels.bpm import MAXERR, approx_counts, build_peq
+from approx_counter_tpu_torch.kernels.exact_stage import slot_dimers
 
 
 def rank_with_zero_counts(codes: torch.Tensor, counts: torch.Tensor, k: int,
                           valid: torch.Tensor | None = None):
     """(codes, counts) of the candidates in CompareCount order; given a
     bool ``valid`` mask, (codes, counts, valid) with every invalid slot last
-    and its count 0."""
+    and its count 0.  The dimer sums come from ``slot_dimers``, one kernel
+    on the card."""
+    dimer = slot_dimers(codes, k)
     if valid is None:
-        order = compare_count_order(codes, counts.to(torch.int64), k)
+        order = compare_count_order(codes, counts.to(torch.int64), k,
+                                    dimer=dimer)
         return codes[order], counts[order]
     # an invalid slot's code was still counted as a real k-mer: mask it
     counts = torch.where(valid, counts, 0)
-    order = compare_count_order(codes, counts.to(torch.int64) + 1, k, valid)
+    order = compare_count_order(codes, counts.to(torch.int64) + 1, k, valid,
+                                dimer)
     return codes[order], counts[order], valid[order]
 
 

@@ -21,9 +21,12 @@ ones as code 0, taken out of that code's run again, and runs are found by
 a boundary mask and a reverse ``cummin``), then ``select_counted_rows``
 (steps 3-4 on fixed (code, count) slots: ``cap`` slots with a validity
 mask); the caller re-runs it at a larger ``cap`` when ``n_keep`` outgrows
-it (the JAX package's cap regrowth).  ``dist/mesh.py`` runs the first on
-each rank's windows and the second on the slots each rank owns, their
-counts summed by ``_run_sums``, the same run-length count.
+it (the JAX package's cap regrowth).  Their elementwise steps, 1 and 3,
+are each one CUDA kernel on a CUDA tensor (``kernels/exact_stage.py``:
+``position_keys``, ``slot_keys``) and torch ops on a CPU tensor.
+``dist/mesh.py`` runs the first on each rank's windows and the second on
+the slots each rank owns, their counts summed by ``_run_sums``, the same
+run-length count.
 ``exact_count_select`` follows the data's shapes: ``exact_count_local``
 (steps 1-2, ``unique_consecutive`` on the valid codes) then
 ``select_counted`` (steps 3-4).  Everything is a sort or a sum over
@@ -36,15 +39,13 @@ import torch
 
 from approx_counter_tpu_torch.core.complexity import dimer_sum, max_dimer_sum
 from approx_counter_tpu_torch.core.ordering import _SIGN, compare_count_order
+from approx_counter_tpu_torch.kernels.exact_stage import (
+    position_keys,
+    positions,
+    slot_keys,
+)
 
 _I64_MAX = (1 << 63) - 1
-#: Above any count of a batch: ``select_counted_rows``'s first top-k key
-#: ranks ``_COUNT_CEIL - count``, non-negative for a count summed over
-#: ranks too.
-_COUNT_CEIL = 1 << 40
-#: Forbidden codes one broadcast compare of ``exact_count_select_rows``
-#: takes: its bool intermediate is P x this.
-FORBID_CHUNK = 16
 #: Rows of ``_suffix_min``'s first level.
 SCAN_ROWS = 1024
 #: Slot granularity of a fixed-cap selection: a regrown cap is ``n_keep``
@@ -62,43 +63,13 @@ def pass_cap(limit: int) -> int:
     return max(512, _round_up(min(limit, 1 << 20), CT))
 
 
-def _positions(windows_t: torch.Tensor, row_mask: torch.Tensor, k: int):
-    """Step 1 on a window batch (uint8 ``[m, n]``, text-major; bool row mask
-    ``[n]``): every position's int64 code and validity, flat, and the
-    number of N-containing k-mers in real windows as an int64 scalar
-    tensor."""
-    if not 2 <= k <= 32:
-        raise ValueError(f"exact_count_select takes 2 <= k <= 32, got {k}")
-    m, n = windows_t.shape
-    p = m - k + 1  # sliding positions per window (ref :496)
-
-    # --- 1. packing sweep over the text rows --------------------------------
-    # At k = 32 the last shift moves the first base into bits 62-63: the
-    # int64 shift wraps like the uint64 one, so the code holds the uint64
-    # bits (negative as int64 when the first base is G or T).
-    code = torch.zeros((p, n), dtype=torch.int64, device=windows_t.device)
-    has_n = torch.zeros((p, n), dtype=torch.bool, device=windows_t.device)
-    has_pad = torch.zeros_like(has_n)
-    for j in range(k):
-        sym = windows_t[j:j + p]
-        has_n |= sym == 4
-        has_pad |= sym >= 5
-        code = (code << 2) | (sym & 3)
-    row_valid = row_mask[None, :]
-    # N-containing k-mers in real windows (ref had_n tally :513-517);
-    # positions touching padding are not real sliding positions.
-    had_n = (has_n & ~has_pad & row_valid).sum()
-    valid = ~(has_n | has_pad) & row_valid
-    return code.reshape(-1), valid.reshape(-1), had_n
-
-
 def exact_count_local(windows_t: torch.Tensor, row_mask: torch.Tensor,
                       k: int):
     """Steps 1-2 on a window batch (uint8 ``[m, n]``, text-major; bool row
     mask ``[n]``): ``(codes, counts, had_n)``, the unique int64 codes of the
     valid positions in ascending order, their int64 counts, and the number
     of N-containing k-mers in real windows as an int64 scalar tensor."""
-    code, valid, had_n = _positions(windows_t, row_mask, k)
+    code, valid, had_n = positions(windows_t, row_mask, k)
     codes, counts = torch.unique_consecutive(
         torch.sort(code[valid]).values, return_counts=True
     )
@@ -262,15 +233,15 @@ def exact_count_local_rows(windows_t: torch.Tensor, row_mask: torch.Tensor,
     ascending unsigned order, its int64 run count (non-zero only at the
     first position of a valid k-mer's run), and the number of N-containing
     k-mers in real windows as a 0-d int64 tensor."""
-    code, valid, had_n = _positions(windows_t, row_mask, k)
+    keys, n_valid, had_n = position_keys(windows_t, row_mask, k)
     # Invalid positions sort as code 0 (the all-A k-mer), which comes first
     # in unsigned order (the sign bit flipped for the signed sort), so they
     # join the first run, and that run's count drops by how many there are.
-    s = torch.sort(torch.where(valid, code, 0) ^ _SIGN).values ^ _SIGN
-    first = torch.zeros_like(s)
-    first[:1] = code.shape[0] - valid.sum()
+    s = torch.sort(keys).values ^ _SIGN
+    counts = _run_sums(s)
     # the first run may hold invalid positions only: its count is then 0
-    return s, _run_sums(s) - first, had_n
+    counts[:1] -= keys.shape[0] - n_valid
+    return s, counts, had_n
 
 
 def select_counted_rows(
@@ -288,38 +259,32 @@ def select_counted_rows(
     ``cap`` survivors in CompareCount order (``_topk_rank``, not a sort of
     every slot, where k <= 16 and the slots outnumber ``2 * cap``).
     Returns ``sel_codes``, ``sel_counts`` (int64 ``[cap]``), ``sel_valid``
-    (bool ``[cap]``: the first ``n_keep`` slots), and ``n_pass`` and
-    ``n_keep`` as 0-d int64 tensors."""
+    (bool ``[cap]``: the first ``n_keep`` slots), and ``n_pass``,
+    ``n_keep`` and ``n_unique`` (the non-empty slots) as 0-d int64
+    tensors."""
     P = codes.shape[0]
     dev = codes.device
 
-    # --- 3. filters on the non-empty slots ----------------------------------
-    dimer = dimer_sum(codes, k)
-    keep = (counts > 0) & (dimer < lc_sum_thr)
-    for f0 in range(0, forbidden.numel(), FORBID_CHUNK):
-        chunk = forbidden[f0:f0 + FORBID_CHUNK]
-        keep &= ~(codes[:, None] == chunk[None, :]).any(dim=1)
-    count = torch.where(keep, counts, 0)
-    if solid_km > 0:
-        keep &= count >= solid_km
-        count = torch.where(keep, count, 0)
-    n_pass = keep.sum()
-
-    # --- 4. CompareCount top-cap --------------------------------------------
+    # --- 3. filters on the non-empty slots, 4. CompareCount top-cap --------
     # (count desc, dimer asc) in one key; the code, descending unsigned, in
     # a second (``~(code ^ sign)``).  Every slot that did not pass has
     # count 0 and so ranks after every one that did.
-    if k <= 16 and P > 2 * cap:
-        key1 = ((_COUNT_CEIL - count) << max_dimer_sum(k).bit_length()) | dimer
-        top = _topk_rank(key1, ~(codes ^ _SIGN), cap)
+    by_topk = k <= 16 and P > 2 * cap
+    slots = slot_keys(codes, counts, k, lc_sum_thr, forbidden, solid_km,
+                      max_dimer_sum(k).bit_length() if by_topk else None)
+    count, n_pass = slots["count"], slots["n_pass"]
+    if by_topk:
+        top = _topk_rank(slots["key1"], slots["ncode"], cap)
     else:
-        top = compare_count_order(codes, count, k, keep, dimer)[:cap]
+        top = compare_count_order(codes, count, k, slots["keep"],
+                                  slots["dimer"])[:cap]
     sel_codes = _cap_slice(codes[top], cap)
     sel_counts = _cap_slice(count[top], cap)
     n_keep = n_pass if solid_km > 0 else n_pass.clamp(max=limit)
     sel_valid = (torch.arange(cap, device=dev) < n_keep) & (sel_counts > 0)
     return dict(sel_codes=sel_codes, sel_counts=sel_counts,
-                sel_valid=sel_valid, n_pass=n_pass, n_keep=n_keep)
+                sel_valid=sel_valid, n_pass=n_pass, n_keep=n_keep,
+                n_unique=slots["n_unique"])
 
 
 def exact_count_select_rows(
@@ -345,4 +310,4 @@ def exact_count_select_rows(
     codes, counts, had_n = exact_count_local_rows(windows_t, row_mask, k)
     out = select_counted_rows(codes, counts, k, lc_sum_thr, forbidden, limit,
                               solid_km, cap)
-    return dict(out, n_unique=(counts > 0).sum(), had_n=had_n)
+    return dict(out, had_n=had_n)

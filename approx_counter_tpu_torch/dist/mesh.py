@@ -65,6 +65,7 @@ from approx_counter_tpu_torch.count.exact import (
 )
 from approx_counter_tpu_torch.dist.sampling import _allgather_rows
 from approx_counter_tpu_torch.kernels.bpm import MAXERR, approx_counts
+from approx_counter_tpu_torch.kernels.exact_stage import slot_dimers
 
 
 def process_count() -> int:
@@ -290,7 +291,7 @@ def owner_segment(recv: torch.Tensor, k: int, lc_sum_thr: int,
     sel = select_counted_rows(s, summed, k, lc_sum_thr, forbidden, limit,
                               solid_km, cap)
     tail = recv[:, 2 * bucket:]
-    stats = torch.stack([(summed > 0).sum(), sel["n_pass"], tail[:, 1].sum(),
+    stats = torch.stack([sel["n_unique"], sel["n_pass"], tail[:, 1].sum(),
                          tail[:, 0].max(), tail[me, 2], tail[me, 3]])
     return torch.cat([sel["sel_codes"],
                       torch.where(sel["sel_valid"], sel["sel_counts"], 0),
@@ -310,7 +311,8 @@ def merge_owned(gathered: torch.Tensor, k: int, limit: int, solid_km: int,
     codes = gathered[:, :cap].reshape(-1)
     counts = gathered[:, cap:2 * cap].reshape(-1)
     stats = gathered[:, 2 * cap:]
-    top = compare_count_order(codes, counts, k, counts > 0)[:cap]
+    top = compare_count_order(codes, counts, k, counts > 0,
+                              slot_dimers(codes, k))[:cap]
     sel_codes, sel_counts = codes[top], counts[top]
     n_pass = stats[:, 1].sum()
     n_keep = n_pass if solid_km > 0 else n_pass.clamp(max=limit)

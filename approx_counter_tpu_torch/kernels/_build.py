@@ -8,7 +8,7 @@ C++ baseline, an executable (``host_program``).  The two level-NFA
 kernels are built once per (k, maxerr) with ``-DKMER`` and ``-DMAXERR``,
 the two bit-sliced Myers kernels once per k with ``-DKMER``; the stage
 network takes its sizes (the rows and stages) as arguments and is built
-once.
+once, as are the exact stage's kernels, which take k as one.
 Libraries go to ``build/torch_kernels/`` beside the package, named by a hash
 of the source, the headers of ``csrc/``, the flags, the compiler's
 ``--version``, the machine and its C library: a changed source rebuilds, an
@@ -45,13 +45,18 @@ GXX_FLAGS = ("-O3", "-std=c++14", "-shared", "-fPIC")
 
 # argtypes of each library's C entry, which has the library's name: the
 # tensors' pointers, then ints, then the CUDA stream.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "nfa_sliced": [_P] * 5 + [_I] * 3 + [_P],   # p0 p1 win valid out | words m W
     "bpm_myers": [_P] * 4 + [_I] * 5 + [_P],    # peq win valid out | C m W k e
     "bpm_packed": [_P] * 4 + [_I] * 6 + [_P],   # words win valid out | n m W k e pack
     "nfa_packed": [_P] * 4 + [_I] * 6 + [_P],
     "sort_stage": [_P] * 2 + [_I] * 3 + [_P],   # in out | rows stages transpose_every
+    "position_keys": [_P] * 4 + [_I] * 3 + [_P],  # win mask keys totals | m n k
+    # codes counts forbidden count key1 ncode dimer keep totals
+    # | P F k lc_sum_thr solid_km key_bits
+    "slot_keys": [_P] * 9 + [_L, _I, _I, _I, _L, _I] + [_P],
+    "slot_dimers": [_P] * 2 + [_L, _I] + [_P],  # codes dimer | n k
 }
 
 

@@ -431,11 +431,12 @@ def _on_cpu(t: torch.Tensor, fn: str) -> bool:
 
 def _launch(fn, tensors, ints) -> None:
     """Call the C entry ``fn`` of a kernel library on the tensors' device
-    and current stream; a nonzero CUDA error raises."""
+    and current stream (a tensor given as None passes a null pointer); a
+    nonzero CUDA error raises."""
     dev = tensors[0].device
     with torch.cuda.device(dev):
-        rc = fn(*(t.data_ptr() for t in tensors), *ints,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                *ints, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
 

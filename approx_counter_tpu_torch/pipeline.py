@@ -29,9 +29,9 @@ profiler records) named ``"<end> pass"``, the next pass's sampling and
 upload inside one named ``"prefetch"``, and each layer's work inside its
 own (``parse``, ``engine``, ``pool``, ``sample``, ``pack``, ``upload``,
 ``wait``, ``eager``, ``capture``, ``rerun``, ``fetch``, ``export``,
-``close``), with the counters ``upload.bytes``, ``regrow.reruns`` and
-``approx.launches`` as marks among them, so a ``--profile`` trace shows
-where each begins and ends.
+``close``), with the counters ``upload.bytes``, ``regrow.reruns``,
+``approx.launches`` and ``exact.launches`` as marks among them, so a
+``--profile`` trace shows where each begins and ends.
 
 Selection is the reference's top-``limit`` or, with ``-sk N``, solid mode:
 every passing k-mer counted N times or more, all of them exported exactly
@@ -96,6 +96,11 @@ from approx_counter_tpu_torch.kernels.bpm import (
     _as_int32_bits,
     approx_counts,
     build_peq,
+)
+from approx_counter_tpu_torch.kernels.exact_stage import (
+    position_keys,
+    slot_dimers,
+    slot_keys,
 )
 from approx_counter_tpu_torch.params import Params
 from approx_counter_tpu_torch.io.stream import stream_sample_windows
@@ -431,6 +436,13 @@ class _PendingPass:
             return self._future.result()
 
 
+def _counted() -> tuple:
+    """The kernel wrappers whose ``launches`` a pass counts, looked up when
+    called: the count kernel's, the exact stage's two and the re-rank's
+    ``slot_dimers``."""
+    return approx_counts, position_keys, slot_keys, slot_dimers
+
+
 def _on_card(t: torch.Tensor) -> bool:
     """Whether ``t`` lives on a CUDA device, where a segment may be a
     graph."""
@@ -450,8 +462,8 @@ class _FusedGraph:
     the next batch meanwhile) and replays; every later run copies in and
     replays, and its outputs are the static ones, which the next replay
     overwrites.  A segment run once only (a rerun at a regrown cap or
-    bucket) is never captured.  ``launches`` is how many times the capture
-    called the count kernel's wrapper, ``approx_counts``; its counter is
+    bucket) is never captured.  ``launches`` maps each wrapper of
+    ``_counted()`` to how many times the capture called it; each counter is
     set back by that many after the capture, which launched nothing, and
     goes up by that many at every replay.  On the CPU ``run`` calls
     ``body`` on the values, eagerly."""
@@ -462,7 +474,7 @@ class _FusedGraph:
         self.inputs = None
         self.graph = None
         self.out = None
-        self.launches = 0
+        self.launches = dict.fromkeys(_counted(), 0)
         self.replays = 0
 
     def _capture(self) -> None:
@@ -470,15 +482,16 @@ class _FusedGraph:
         # synchronizes the card, collects garbage and empties the cache,
         # under the feet of the caller's thread
         graph = torch.cuda.CUDAGraph()
-        before = approx_counts.launches
+        before = {f: f.launches for f in _counted()}
         with span("capture"):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.out = self.body(*self.inputs)
             finally:
                 graph.capture_end()
-        self.launches = approx_counts.launches - before
-        approx_counts.launches = before
+        for f, n in before.items():
+            self.launches[f] = f.launches - n
+            f.launches = n
         self.graph = graph
 
     def run(self, *values):
@@ -496,7 +509,8 @@ class _FusedGraph:
         if self.graph is None:
             self._capture()
         self.graph.replay()
-        approx_counts.launches += self.launches
+        for f, n in self.launches.items():
+            f.launches += n
         self.replays += 1
         return self.out
 
@@ -685,14 +699,18 @@ class Engine:
         """The pass on device-resident windows (``[m, n]`` uint8, bool row
         mask): the sharded step with the passes' own process group,
         else the fused pass.  The mark ``approx.launches`` gives the count
-        kernel's launches the pass made, a discarded first-cap run's and a
+        kernel's launches the pass made, ``exact.launches`` the exact
+        stage's two kernels' (``kernels/exact_stage.py``: 2 a run of the
+        body on the card, 0 on the CPU), a discarded first-cap run's and a
         graph's replays included."""
-        before = approx_counts.launches
+        before = {f: f.launches for f in _counted()}
         if self._group is not None:
             got = self._sharded_pass(windows_t, row_mask, positions)
         else:
             got = self._fused_pass(windows_t, row_mask)
-        count("approx.launches", approx_counts.launches - before)
+        made = {f: f.launches - n for f, n in before.items()}
+        count("approx.launches", made[approx_counts])
+        count("exact.launches", made[position_keys] + made[slot_keys])
         return got
 
     def _unpacked(self, arr: np.ndarray, cap: int):

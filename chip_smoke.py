@@ -17,6 +17,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      (20 calls for the kernel, 2 for the plain version); the kernel's is
      the mean of the first of 3 trials of 20 calls (``bench.trial_times``,
      as in phase 3), the least and each trial's host issue time logged.
+ 2b. The exact stage's kernels (``kernels/exact_stage.py``) at the cells'
+     shape (an end batch of 40,000 windows of 101 bases with Ns, pads and
+     333 windows not real, k=16, 17 forbidden codes), each equal exactly to
+     its plain version run on the CPU: ``position_keys`` (keys, valid and
+     N totals), ``slot_keys`` on the batch's 3.44 M (code, count) slots in
+     both output sets (the top-k keys at solid_km 0, dimer and keep at 2),
+     ``slot_dimers`` on every slot's code and on the re-rank's 512.  Each
+     kernel's time and its plain version's on the card (device work per
+     call, calls captured in a CUDA graph) and a bound of its bytes over
+     3.35 TB/s, which it may not beat.
   3. The three alternate kernels (unpacked Myers, packed Myers, packed
      NFA) at the default-run shape, k=16 (and pack 4 at k=8; the packed
      NFA also at pack 1): each equal to its plain version, to the plain
@@ -41,7 +51,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      both ends) on a seeded synthetic FASTA of 50,000 reads with planted
      adapters, through ``approx_counter_tpu_torch.__main__.main``: rc 0, the
      kernel launched on the main path, 4 exports of 500 lines with adapter
-     k-mers on top.  Per-end wall time from the CLI's own log timestamps.
+     k-mers on top, and each exact-stage kernel launched once a run of the
+     fused body.  Per-end wall time from the CLI's own log timestamps.
      Then the same run at -k 32: rc 0, kernel launched, 4 x 500 lines.
   5. The CLI at -sn 3000 on the card and ``run_pipeline`` on the CPU, at
      k=16, 17 and 32, and at k=16 with -sk 2, with --from-exact (phase 4's
@@ -72,14 +83,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      order; the approximate one min(n_keep, 500), adapters on top; the
      launches are those the fused pass's plan gives for the two ends'
      n_keep (``pass_launches``: one launch at cap 512 and one at n_keep
-     rounded up to 128 a pass, eager, captured or replayed).  The
+     rounded up to 128 a pass, eager, captured or replayed), and each
+     exact-stage kernel's once a run of the body.  The
      kernel's time and bound at the -sk 20 start end's C and at the -sk 1
      one's.
  10. Resume: --from-exact on phase 4's warm k=16 exact .start (500 codes)
      and on phase 9's -sk 20 exact .start (~2,900), same seed: no exact
      export, .start byte-equal to the full run's, .end 500 lines; the
      launches those of one fixed-cap graph (``resume_launches``: the
-     start end eager, the end end captured and replayed).
+     start end eager, the end end captured and replayed); no exact-stage
+     launch but the re-rank's ``slot_dimers``, once a pass.
  11. Stream: --stream -sn 60000 equals the in-memory run at -sn 60000 (every
      read eligible); then, in a child process, --stream at the default sn on
      a 500,000-read, ~440 MB FASTA (the 50,000 reads ten times over): rc 0,
@@ -217,7 +230,17 @@ KERNELS = {
     "bpm_packed": (f"{CSRC}/bpm_packed.cu", f"{TPU_BPM}:399"),
     "nfa_packed": (f"{CSRC}/nfa_packed.cu", f"{TPU_BPM}:505"),
     "sort_stage": (f"{CSRC}/sort_stage.cu", "native/sort_stage_probe5.py:48"),
+    # no Pallas kernel: the JAX package's elementwise ops, fused by XLA
+    "position_keys": (f"{CSRC}/position_keys.cu",
+                      "approx_counter_tpu/count/exact.py:245 (XLA)"),
+    "slot_keys": (f"{CSRC}/slot_keys.cu",
+                  "approx_counter_tpu/count/exact.py:317 (XLA)"),
+    "slot_dimers": (f"{CSRC}/slot_dimers.cu",
+                    "approx_counter_tpu/core/complexity.py:78 (XLA)"),
 }
+#: the exact-stage kernels, whose launches a run of the fused body makes
+#: once each
+EXACT_KERNELS = ("position_keys", "slot_keys", "slot_dimers")
 SMALL_KS = (2, 3, 16, 31, 32)
 MAIN = dict(C=500, W=40000, m=101, maxerr=2, n_invalid=333)
 # H100 SXM: 132 SMs; HBM3 3.35 TB/s (NVIDIA data sheet)
@@ -489,6 +512,31 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return trials_ms(fn, reps, warmup)[0][0]
 
 
+def graph_ms(fn, reps: int, trials: int = 3) -> float:
+    """ms of device work per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph (after one eager call), the least of ``trials`` replays
+    by CUDA events, over ``reps``.  No host dispatch is timed, which a
+    kernel of tens of microseconds would otherwise wait on."""
+    import torch
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(trials):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
 def kernel_ms(fn) -> tuple[float, float, str]:
     """A count kernel at its main shape: (the first trial's mean, the least
     mean, the trials as text) over ``KERNEL_TRIALS`` trials of 20 calls
@@ -501,39 +549,59 @@ def kernel_ms(fn) -> tuple[float, float, str]:
 
 def launch_counts() -> dict:
     """Each kernel's launch count, read from its wrapper."""
-    from approx_counter_tpu_torch.kernels import bpm, sort_stage
+    from approx_counter_tpu_torch.kernels import bpm, exact_stage, sort_stage
 
     return {"nfa_sliced": bpm.approx_counts.launches,
             "bpm_myers": bpm.approx_counts_myers.launches,
             "bpm_packed": bpm.approx_counts_packed.launches["myers"],
             "nfa_packed": bpm.approx_counts_packed.launches["nfa"],
-            "sort_stage": sort_stage.stage_network.launches}
+            "sort_stage": sort_stage.stage_network.launches,
+            **{name: getattr(exact_stage, name).launches
+               for name in EXACT_KERNELS}}
 
 
 def reset_launch_counts() -> None:
-    from approx_counter_tpu_torch.kernels import bpm, sort_stage
+    from approx_counter_tpu_torch.kernels import bpm, exact_stage, sort_stage
 
     bpm.approx_counts.launches = 0
     bpm.approx_counts_myers.launches = 0
     bpm.approx_counts_packed.launches = {"myers": 0, "nfa": 0}
     sort_stage.stage_network.launches = 0
+    for name in EXACT_KERNELS:
+        getattr(exact_stage, name).launches = 0
+
+
+def pass_caps(n_keeps: list[int], limit: int = 500) -> list[int]:
+    """The caps at which a single-device run whose passes (one batch
+    shape) keep ``n_keeps`` runs the fused body: each pass at the first cap
+    (eagerly, captured and replayed, or replayed) and, when its n_keep
+    outgrows it, eagerly at n_keep rounded up to ``CT``; no run is thrown
+    away."""
+    from approx_counter_tpu_torch.pipeline import CT, _round_up, pass_cap
+
+    first, caps = pass_cap(limit), []
+    for n_keep in n_keeps:
+        caps += [first] + ([_round_up(n_keep, CT)] if n_keep > first else [])
+    return caps
 
 
 def pass_launches(n_keeps: list[int], limit: int = 500) -> int:
-    """The sliced kernel's launches in a single-device run whose passes
-    (one batch shape) keep ``n_keeps``: each pass runs the body at the
-    first cap (eagerly, captured and replayed, or replayed) and, when its
-    n_keep outgrows it, eagerly at n_keep rounded up to ``CT``; no run is
-    thrown away.  A run at ``cap`` launches the kernel
-    ``word_launches(cap // 32)`` times."""
+    """The sliced kernel's launches in such a run (``pass_caps``): a run
+    at ``cap`` launches it ``word_launches(cap // 32)`` times."""
     from approx_counter_tpu_torch.kernels.bpm import word_launches
-    from approx_counter_tpu_torch.pipeline import CT, _round_up, pass_cap
 
-    first, total = pass_cap(limit), 0
-    for n_keep in n_keeps:
-        caps = [first] + ([_round_up(n_keep, CT)] if n_keep > first else [])
-        total += sum(len(word_launches(cap // 32)) for cap in caps)
-    return total
+    return sum(len(word_launches(cap // 32))
+               for cap in pass_caps(n_keeps, limit))
+
+
+def check_exact_launches(counts: dict, runs: int, what: str) -> None:
+    """Raises unless each exact-stage kernel launched ``runs`` times (the
+    fused body's runs), ``slot_dimers`` too: the re-rank runs in every
+    body."""
+    got = {name: counts[name] for name in EXACT_KERNELS}
+    if got != dict.fromkeys(EXACT_KERNELS, runs):
+        raise AssertionError(f"{what}: exact-stage launches {got}, want "
+                             f"{runs} each (the fused body's runs)")
 
 
 def main_case(rng, k: int):
@@ -610,6 +678,122 @@ def phase_kernel(builds: dict, clock_hz: float) -> dict:
     not_under("nfa_sliced at the main shape", best_ms, bound_ms)
     return dict(max_abs_err=max_err, ms=ms, best_ms=best_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# the exact stage at the cells' shape: an end batch of the default run
+# (40,000 windows of 101 bases, the last 333 not real), k = 16, 17
+# forbidden codes, the re-rank's 512 codes
+EXACT = dict(m=101, W=40000, k=16, n_invalid=333, F=17, cap=512)
+
+
+def phase_exact_stage() -> tuple[dict, dict]:
+    """Phase 2b: the exact stage's kernels (``kernels/exact_stage.py``) on
+    the card at the cells' shape, each equal to its plain version on the
+    CPU: ``position_keys`` (keys and both totals), ``slot_keys`` on the
+    batch's (code, count) slots in both output sets (the default run's
+    top-k keys at ``solid_km`` 0, the CompareCount inputs at 2) and
+    ``slot_dimers`` on every slot's code and on the re-rank's 512.  Each
+    kernel's ms and its plain version's on the card (device work per call:
+    calls captured in a CUDA graph, ``graph_ms``), and a bound of its bytes
+    over the memory rate, which it may not beat.  Returns the three
+    ``kernels`` entries and the checks' launches (counted from 0)."""
+    import torch
+
+    from approx_counter_tpu_torch.core.complexity import (
+        dimer_sum,
+        lc_sum_threshold,
+        max_dimer_sum,
+    )
+    from approx_counter_tpu_torch.count.exact import exact_count_local_rows
+    from approx_counter_tpu_torch.kernels import exact_stage as es
+    from approx_counter_tpu_torch.params import Params
+
+    dev = torch.device("cuda")
+    m, W, k, F = EXACT["m"], EXACT["W"], EXACT["k"], EXACT["F"]
+    rng = np.random.default_rng(24)
+    _, wins_t, valid = random_case(rng, MAIN["C"], W, m, k,
+                                   EXACT["n_invalid"])
+    cpu = (torch.from_numpy(wins_t), torch.from_numpy(valid))
+    card = tuple(t.to(dev) for t in cpu)
+    reset_launch_counts()
+
+    got = es.position_keys(*card, k)
+    want = es.position_keys_ref(*cpu, k)
+    for name, g, w in zip(("keys", "n_valid", "had_n"), got, want):
+        exact_diff(g.cpu(), w, f"position_keys {name} != position_keys_ref")
+    P = want[0].numel()
+    codes, counts, _ = exact_count_local_rows(*cpu, k)
+    top = codes[torch.argsort(counts, descending=True)[:F // 2]]
+    forbidden = torch.cat([top, torch.from_numpy(rng.integers(
+        -(1 << 62), 1 << 62, F - len(top)))])
+    lc_thr = lc_sum_threshold(Params(k=k, sl=m - 1).adjusted_lc, k)
+    on = {"cpu": (codes, counts, forbidden)}
+    on["cuda"] = tuple(t.to(dev) for t in on["cpu"])
+    key_bits = max_dimer_sum(k).bit_length()
+
+    def slots(where, solid_km, bits, fn=es.slot_keys):
+        c, n, f = on[where]
+        return fn(c, n, k, lc_thr, f, solid_km, bits)
+
+    kept = {}
+    for solid_km, bits in ((0, key_bits), (2, None)):
+        want = slots("cpu", solid_km, bits, es.slot_keys_ref)
+        got = slots("cuda", solid_km, bits)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"slot_keys outputs {sorted(got)} != "
+                                 f"{sorted(want)}")
+        for name in want:
+            exact_diff(got[name].cpu(), want[name],
+                       f"slot_keys {name} (solid_km {solid_km}) != "
+                       f"slot_keys_ref")
+        kept[solid_km] = int(want["n_pass"])
+    cap_codes = codes[:EXACT["cap"]]
+    for c, what in ((codes, "every slot's code"), (cap_codes, "512 codes")):
+        exact_diff(es.slot_dimers(c.to(dev), k).cpu(), dimer_sum(c, k),
+                   f"slot_dimers on {what} != dimer_sum")
+    launches = launch_counts()
+    made = {name: launches[name] for name in EXACT_KERNELS}
+    if made != {"position_keys": 1, "slot_keys": 2, "slot_dimers": 2}:
+        raise AssertionError(f"exact-stage phase launches {made}")
+    log(f"[exact] m={m} W={W} k={k} ({W - EXACT['n_invalid']} real windows, "
+        f"Ns and pads), P={P} positions, {len(codes)} slots, F={F}: "
+        f"position_keys == position_keys_ref (keys, totals); slot_keys == "
+        f"slot_keys_ref in both output sets (n_pass {kept[0]} at solid_km "
+        f"0, {kept[2]} at 2); slot_dimers == dimer_sum on every slot and "
+        f"on 512 codes; launches {made}")
+
+    # device work per call; the plain versions' ops too, so the times
+    # compare the card's work alone
+    codes_d, counts_d, _ = on["cuda"]
+    cap_d = codes_d[:EXACT["cap"]]
+    runs = {
+        "position_keys": (lambda: es.position_keys(*card, k),
+                          lambda: es.position_keys_ref(*card, k),
+                          m * W + W + 8 * P + 16),
+        "slot_keys": (lambda: slots("cuda", 0, key_bits),
+                      lambda: slots("cuda", 0, key_bits, es.slot_keys_ref),
+                      16 * len(codes) + 8 * F + 24 * len(codes) + 16),
+        "slot_dimers": (lambda: es.slot_dimers(codes_d, k),
+                        lambda: dimer_sum(codes_d, k), 12 * len(codes)),
+    }
+    entries = {}
+    for name, (kernel, plain, nbytes) in runs.items():
+        ms = graph_ms(kernel, 20)
+        plain_ms = graph_ms(plain, 3)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        not_under(f"{name} at the cells' shape", ms, bound_ms)
+        entries[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by="bytes",
+                             nbytes=nbytes)
+        log(f"[exact] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"(device work a call: 20 / 3 calls in a CUDA graph, least of 3 "
+            f"replays); bound {bound_ms:.4f} ms ({nbytes} B over "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s), {bound_ms / ms:.1%} of it")
+    cap_ms = graph_ms(lambda: es.slot_dimers(cap_d, k), 20)
+    log(f"[exact] slot_dimers on the re-rank's {EXACT['cap']} codes: "
+        f"{cap_ms:.4f} ms a call (launch-bound)")
+    entries["slot_dimers"]["cap_ms"] = cap_ms
+    return entries, made
 
 
 # the bench's kernel shape (bench.py:29) and its JSON line's keys
@@ -959,11 +1143,12 @@ def end_seconds(stdout: str) -> dict:
             per_end_ms(stdout, "Working on sequence", "Done").items()}
 
 
-def phase_main_path(fasta: str, out_dir: str, k: int) -> int:
-    """The default CLI run at ``k``, cold then warm; returns the kernel
-    launches of the warm run.  At k <= 27 the planted adapters' k-mers
-    must top every export."""
-    launches = 0
+def phase_main_path(fasta: str, out_dir: str, k: int) -> dict:
+    """The default CLI run at ``k``, cold then warm; returns each kernel's
+    launches in the warm run.  Each exact-stage kernel launches once a run
+    of the fused body.  At k <= 27 the planted adapters' k-mers must top
+    every export."""
+    counts = {}
     for label in ("cold", "warm"):
         out, exact = f"{out_dir}/k{k}_{label}_out", f"{out_dir}/k{k}_{label}_exact"
         reset_launch_counts()
@@ -977,6 +1162,8 @@ def phase_main_path(fasta: str, out_dir: str, k: int) -> int:
             raise AssertionError(f"CLI -k {k} rc {rc}:\n{stdout}")
         if launches < 2:
             raise AssertionError(f"kernel launched {launches} times, want >= 2")
+        check_exact_launches(counts, len(pass_caps(list(
+            per_end_kept(stdout).values()))), f"-k {k} {label} run")
         per_end = end_seconds(stdout)
         log(f"[main path] -k {k} {label} run: rc 0, launches {counts}, "
             f"start end {per_end['start']:.4f} s, end end "
@@ -993,7 +1180,7 @@ def phase_main_path(fasta: str, out_dir: str, k: int) -> int:
                                          f"all from the planted adapter")
     log(f"[main path] -k {k}: 4 exports x 500 lines"
         + (", planted adapter k-mers on top" if k <= len(END_ADAPTER) else ""))
-    return launches
+    return counts
 
 
 def phase_parity(fasta: str, out_dir: str, k: int, extra: tuple = (),
@@ -1396,8 +1583,8 @@ def kernel_at(builds: dict, clock_hz: float, C: int, reps: int,
 def phase_solid(fasta: str, out_dir: str, builds: dict,
                 clock_hz: float) -> dict:
     """Phase 9: the default run at -sk 20 and -sk 1.  Returns, per N, the
-    kept counts and launches, and the kernel's time and bound at each's
-    start C."""
+    kept counts, the sliced kernel's launches and each exact-stage
+    kernel's, and the kernel's time and bound at each's start C."""
     result = {}
     for sk in (20, 1):
         out, exact = f"{out_dir}/sk{sk}_out", f"{out_dir}/sk{sk}_exact"
@@ -1406,7 +1593,8 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
         rc, stdout = run_cli([fasta, "-sk", str(sk), "-o", out, "-e", exact,
                               "--seed", "5"])
         wall = time.perf_counter() - t0
-        launches = launch_counts()["nfa_sliced"]
+        counts = launch_counts()
+        launches = counts["nfa_sliced"]
         if rc != 0:
             raise AssertionError(f"CLI -sk {sk} rc {rc}:\n{stdout}")
         kept = per_end_kept(stdout)
@@ -1414,6 +1602,8 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
         if launches != plan:
             raise AssertionError(f"-sk {sk}: {launches} launches, the plan "
                                  f"for n_keep {kept} gives {plan}")
+        runs = len(pass_caps([kept["start"], kept["end"]]))
+        check_exact_launches(counts, runs, f"-sk {sk}")
         for which, adapter in ADAPTERS:
             codes, counts = read_export(f"{exact}_0.{which}", 16)
             if len(codes) != kept[which] or counts.min() < sk:
@@ -1430,7 +1620,7 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
         app_ms = per_end_ms(stdout, "Exporting approximate count", "Done")
         log(f"[solid] -sk {sk}: rc 0, n_keep {kept}, launches {launches} "
             f"(plan {plan}: one pass at cap 512, one eager rerun at n_keep "
-            f"rounded up to 128; > {OLD_LIMIT} "
+            f"rounded up to 128; each exact-stage kernel {runs}; > {OLD_LIMIT} "
             f"candidates: "
             f"{ {e: n > OLD_LIMIT for e, n in kept.items()} }), exact exports "
             f"n_keep lines >= {sk} in CompareCount order, approx "
@@ -1446,7 +1636,7 @@ def phase_solid(fasta: str, out_dir: str, builds: dict,
             f"({bound_by}), {kept['start'] * MAIN['W'] / ms / 1e9:.4f} T "
             f"pairs/s")
         result[sk] = dict(kept=kept, launches=launches, ms=ms,
-                          bound_ms=bound_ms)
+                          bound_ms=bound_ms, exact=runs)
     return result
 
 
@@ -1468,10 +1658,13 @@ def resume_launches(n_codes: int) -> int:
     return len(word_launches(cap // 32)) * 2
 
 
-def phase_resume(fasta: str, out_dir: str) -> int:
+def phase_resume(fasta: str, out_dir: str) -> dict:
     """Phase 10: --from-exact on phase 4's warm k=16 exact .start (500
     codes) and on phase 9's -sk 20 exact .start (about 2,900), same seed:
-    each a fixed-cap resume graph.  Returns the first run's launches."""
+    each a fixed-cap resume graph, which runs no exact stage (no
+    ``position_keys`` or ``slot_keys`` launch) but the re-rank's
+    ``slot_dimers`` once a pass.  Returns the first run's launches of
+    each kernel."""
     import glob
 
     first = None
@@ -1485,11 +1678,15 @@ def phase_resume(fasta: str, out_dir: str) -> int:
         reset_launch_counts()
         rc, stdout = run_cli([fasta, "--from-exact", f"{out_dir}/{prior}",
                               "-o", out, "-e", exact, "--seed", "5"])
-        launches = launch_counts()["nfa_sliced"]
+        counts = launch_counts()
+        launches = counts["nfa_sliced"]
         plan = resume_launches(n_codes)
-        if rc != 0 or launches != plan:
+        exact = {name: counts[name] for name in EXACT_KERNELS}
+        if (rc != 0 or launches != plan or exact != {
+                "position_keys": 0, "slot_keys": 0, "slot_dimers": 2}):
             raise AssertionError(f"resume ({tag}) rc {rc}, {launches} "
-                                 f"launches (plan {plan}):\n{stdout}")
+                                 f"launches (plan {plan}), exact stage "
+                                 f"{exact}:\n{stdout}")
         if glob.glob(f"{exact}*"):
             raise AssertionError("resume wrote an exact export")
         # the same seed samples the same start batch: the ranking of the
@@ -1500,10 +1697,11 @@ def phase_resume(fasta: str, out_dir: str) -> int:
                 raise AssertionError(f"{out}_0.end: not 500 lines")
         log(f"[resume] --from-exact ({tag}: {n_codes} codes): rc 0, launches "
             f"{launches} (plan: one segment at the fixed cap, eager at the "
-            f"start end, a replay at the end end), no exact export, .start "
+            f"start end, a replay at the end end), exact stage {exact}, no "
+            f"exact export, .start "
             f"byte-equal to the full run's, .end 500 lines; per-end wall "
             f"{end_seconds(stdout)} s")
-        first = launches if first is None else first
+        first = counts if first is None else first
     return first
 
 
@@ -2493,6 +2691,7 @@ def _phase_fused(fasta: str, out_dir: str) -> dict:
     import torch
 
     from approx_counter_tpu_torch.io.fastx import read_fastx
+    from approx_counter_tpu_torch.kernels import bpm
     from approx_counter_tpu_torch.params import Params
     from approx_counter_tpu_torch.pipeline import (
         CT,
@@ -2564,7 +2763,7 @@ def _phase_fused(fasta: str, out_dir: str) -> dict:
             + f" ({len(ran)} words at cap {caps[-1]}; {cpu_s:.1f} s), a "
             f"replayed pass == the eager first; nfa_sliced launches in the "
             f"first pass {launches[f'fused pass {tag}']}, a replay "
-            f"{fused.launches}")
+            f"{fused.launches[bpm.approx_counts]}")
         runs[tag] = (engine, windows_t, row_mask, caps)
     torch.cuda.synchronize()
     log(f"[fused] device memory of the three engines, their batches, graphs "
@@ -2779,6 +2978,8 @@ def main(argv: list[str] | None = None) -> int:
     builds = phase_build()
     entries = {"nfa_sliced": phase_kernel(builds, clock_hz)}
     entries.update(phase_alternates(builds, clock_hz, entries["nfa_sliced"]))
+    exact_entries, exact_made = phase_exact_stage()
+    entries.update(exact_entries)
     bench_launches = phase_bench(entries["nfa_sliced"])
     phase_searchscheme()
     phase_limit(builds, clock_hz)
@@ -2790,9 +2991,12 @@ def main(argv: list[str] | None = None) -> int:
         log(f"[data] 50,000 synthetic reads written in "
             f"{time.perf_counter() - t0:.2f} s")
         # each kernel's launches by path, each path's counted from 0
-        paths = {"nfa_sliced": {"default run":
-                                phase_main_path(fasta, tmp, 16),
+        default = phase_main_path(fasta, tmp, 16)
+        paths = {"nfa_sliced": {"default run": default["nfa_sliced"],
                                 "bench": bench_launches}}
+        paths.update({name: {"exact phase": exact_made[name],
+                             "default run": default[name]}
+                      for name in EXACT_KERNELS})
         phase_main_path(fasta, tmp, 32)
         for k in (16, 17, 32):
             phase_parity(fasta, tmp, k)
@@ -2801,8 +3005,13 @@ def main(argv: list[str] | None = None) -> int:
                                       f"{tmp}/k16_warm_exact_0.start"),
                      "resume")
         phase_parity(fasta, tmp, 16, ("--stream",), "stream")
-        phase_solid(fasta, tmp, builds, clock_hz)
-        paths["nfa_sliced"]["resume"] = phase_resume(fasta, tmp)
+        solid = phase_solid(fasta, tmp, builds, clock_hz)
+        resumed = phase_resume(fasta, tmp)
+        paths["nfa_sliced"]["resume"] = resumed["nfa_sliced"]
+        for name in EXACT_KERNELS:
+            paths[name].update({f"-sk {sk}": solid[sk]["exact"]
+                                for sk in solid})
+            paths[name]["resume"] = resumed[name]
         phase_stream(fasta, tmp)
         phase_profile(fasta, tmp)
         paths["nfa_sliced"].update(phase_multihost(fasta, tmp))

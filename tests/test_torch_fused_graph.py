@@ -25,7 +25,7 @@ torch.set_num_threads(1)
 from torch.profiler import ProfilerActivity  # noqa: E402
 
 from approx_counter_tpu_torch import pipeline  # noqa: E402
-from approx_counter_tpu_torch.kernels import bpm  # noqa: E402
+from approx_counter_tpu_torch.kernels import bpm, exact_stage  # noqa: E402
 from approx_counter_tpu_torch.params import Params  # noqa: E402
 from approx_counter_tpu_torch.pipeline import (  # noqa: E402
     Engine,
@@ -108,36 +108,42 @@ def _marks(prof, name: str) -> int:
 def test_a_segment_runs_eagerly_then_captures_then_replays(card, runs):
     """A key run once runs its body eagerly (fresh outputs, no graph);
     twice, eagerly and then a capture and a replay; five times, one more
-    replay each time, the body still called twice.  The kernel's counter
-    goes up by one a run: the eager run through the wrapper, a replay by
-    ``launches``, the capture by nothing."""
+    replay each time, the body still called twice.  Each kernel's counter
+    goes up by its launches a run (1 to 4 here, another number for each,
+    so no two counters can be mixed up): the eager run through the
+    wrappers, a replay by ``launches``, the capture by nothing."""
     calls = []
+    made = {bpm.approx_counts: 1, exact_stage.position_keys: 2,
+            exact_stage.slot_keys: 3, exact_stage.slot_dimers: 4}
 
     def body(x):
         calls.append(x)
-        bpm.approx_counts.launches += 1  # the wrapper's own count
+        for f, n in made.items():
+            f.launches += n  # the wrappers' own counts
         return x * 2 + 1
 
     x = torch.arange(10)
     seg = _FusedGraph(body)
-    before = bpm.approx_counts.launches
+    before = {f: f.launches for f in made}
     with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
         got = [seg.run(x) for _ in range(runs)]
     for one in got:
         torch.testing.assert_close(one, x * 2 + 1)
-    assert bpm.approx_counts.launches == before + runs
+    assert {f: f.launches - n for f, n in before.items()} == {
+        f: n * runs for f, n in made.items()}
     assert _marks(prof, "eager") == 1
     assert _marks(prof, "warm-up") == 0
     assert _marks(prof, "capture") == len(card) == min(runs - 1, 1)
     assert len(calls) == min(runs, 2) and calls[0] is x
     assert seg.runs == runs and seg.replays == runs - 1
     if runs == 1:
-        assert seg.graph is None and seg.inputs is None and seg.launches == 0
+        assert seg.graph is None and seg.inputs is None
+        assert seg.launches == dict.fromkeys(pipeline._counted(), 0)
     else:
         (graph,) = card
         assert graph.captures == 1 and graph.replays == runs - 1
         assert calls[1] is seg.inputs[0] and seg.inputs[0] is not x
-        assert seg.launches == 1 and seg.graph is not None
+        assert seg.launches == made and seg.graph is not None
 
 
 def test_a_regrown_cap_runs_eagerly_and_is_never_cached(card, monkeypatch):
@@ -239,7 +245,7 @@ def test_fused_graph_replays_the_eager_body():
         np.testing.assert_array_equal(replayed, eager)
         np.testing.assert_array_equal(replayed, cpu._pass_output(
             cap, windows_t.cpu(), row_mask.cpu()))
-        assert graph.launches == 1 and graph.replays == 2
+        assert graph.launches[bpm.approx_counts] == 1 and graph.replays == 2
     finally:
         engine.close()
         cpu.close()
