@@ -20,7 +20,13 @@ seed, and held to what the program wrote (in a ``--multihost`` cell, rank
   extra rows;
 - ``unranked_wrong`` (solid mode): of a seeded sample of the solid k-mers
   the export left out, those that rank before its last row, so belong in
-  it.
+  it;
+- ``exact_rows_wrong`` (where the configuration writes the exact-count
+  export, ``-e``): rows of that export that differ from the reference's
+  exact selection (its codes and counts in CompareCount order), compared
+  row by row in order, plus missing and extra rows; a row that is not
+  ``kmer\tcount`` as the reference prints it is wrong.  Both sides are
+  compared as arrays, not as millions of formatted lines.
 
 Every number is exact: its limit is 0.
 
@@ -39,7 +45,7 @@ from benchmark.reference import adaptfinder as ref
 from benchmark.reference import multihost as ref_multihost
 
 LIMITS = dict(jobs_failed=0, passes_missing=0, stats_wrong=0, rows_wrong=0,
-              unranked_wrong=0)
+              unranked_wrong=0, exact_rows_wrong=0)
 
 _STAMP = re.compile(r"^\[([0-9.e+-]+) ms\]")
 _PASS = re.compile(r"Working on sequence (start|end)\.")
@@ -107,19 +113,76 @@ def sample_passes(n_jobs: int, n_passes: int, count: int,
     return sorted((int(p) // n_passes, int(p) % n_passes) for p in picks)
 
 
-def program_output(job, p: int, stats: list) -> dict:
+#: bytes to base codes in an export's k-mers; 255 for any other byte
+_BASE = np.full(256, 255, np.uint8)
+_BASE[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+
+
+def parse_export(raw: bytes, k: int):
+    """An export's ``kmer\tcount`` rows as arrays: uint64 codes and
+    counts, and whether each row is as the reference prints it (k bases of
+    ACGT, a tab, a count of 1 to 19 digits without a leading zero, a
+    newline).  A row that is not reads code and count 0."""
+    data = np.frombuffer(raw, np.uint8)
+    ends = np.flatnonzero(data == ord("\n"))
+    if len(data) and data[-1] != ord("\n"):
+        ends = np.append(ends, len(data))   # a last row without its newline
+    starts = np.concatenate([[0], ends[:-1] + 1]).astype(np.int64)
+    ndig = ends - starts - k - 1
+    pad = np.concatenate([data, np.zeros(k + 2, np.uint8)])
+    ok = (ends < len(data)) & (ndig >= 1) & (ndig <= 19)
+    ok &= pad[starts + k] == ord("\t")
+    ok &= (pad[starts + k + 1] != ord("0")) | (ndig == 1)
+    codes = np.zeros(len(ends), np.uint64)
+    for j in range(k):       # a column at a time: 2.7 M rows an end
+        base = _BASE[pad[starts + j]]
+        ok &= base < 4
+        codes = (codes << np.uint64(2)) | (base & 3).astype(np.uint64)
+    counts = np.zeros(len(ends), np.uint64)
+    width = int(ndig[ok].max()) if ok.any() else 0
+    for j in range(width):   # the last ``width`` bytes before the newline
+        at = ends - width + j
+        inside = at > starts + k
+        digit = pad[np.maximum(at, 0)].astype(np.int64) - ord("0")
+        ok &= ~inside | ((digit >= 0) & (digit <= 9))
+        counts = counts * np.uint64(10) + np.where(
+            inside & ok, digit, 0).astype(np.uint64)
+    codes[~ok] = 0
+    counts[~ok] = 0
+    return codes, counts, ok
+
+
+def exact_rows_wrong(got, codes: np.ndarray, counts: np.ndarray) -> int:
+    """Rows of an exact-count export (``parse_export``'s arrays, or None
+    for a missing file) that differ from the reference's ``codes`` and
+    ``counts``, row by row in order, plus missing and extra rows."""
+    if got is None:
+        return len(codes)
+    g_codes, g_counts, ok = got
+    n = min(len(g_codes), len(codes))
+    same = ok[:n] & (g_codes[:n] == codes[:n]) & (g_counts[:n] == counts[:n])
+    return int(n - same.sum()) + abs(len(g_codes) - len(codes))
+
+
+def program_output(job, p: int, stats: list, k: int) -> dict:
     """What the program wrote for pass ``p`` of ``job``: the approximate
-    export's lines and the pass's printed numbers."""
+    export's lines, the pass's printed numbers and, where the job wrote
+    exact-count exports, pass ``p``'s rows (``parse_export``)."""
     raw = job.exports[p]
-    return dict(lines=[] if raw is None else raw.decode().splitlines(),
-                stats=stats[p])
+    out = dict(lines=[] if raw is None else raw.decode().splitlines(),
+               stats=stats[p])
+    if job.exact_exports:
+        exact = job.exact_exports[p]
+        out["exact"] = None if exact is None else parse_export(exact, k)
+    return out
 
 
 def control_output(windows: np.ndarray, prm, kind: str, device) -> dict:
     """The reference in the program's place with one guarantee broken:
     ``hamming`` counts substitutions only; ``first_cap`` cuts solid mode's
     selection at the program's first cap (512) instead of keeping every
-    solid k-mer."""
+    solid k-mer.  Where the configuration writes the exact-count export,
+    its rows are the control's exact selection."""
     k, limit = prm.k, prm.limit
     cap = 512 if kind == "first_cap" else None
     ex = ref.exact_stage(windows, k, prm.param_lc, limit, prm.solid_km,
@@ -128,17 +191,24 @@ def control_output(windows: np.ndarray, prm, kind: str, device) -> dict:
     counts = ref.approx_counts(ex["codes"], windows, k, prm.max_error, device,
                                distance=distance)
     codes, counts = ref.rank(ex["codes"], counts, k, limit)
-    return dict(lines=ref.export_lines(codes, counts, k),
-                stats=dict(n_valid=len(windows), n_unique=ex["n_unique"],
-                           n_keep=ex["n_keep"], had_n=ex["had_n"]))
+    out = dict(lines=ref.export_lines(codes, counts, k),
+               stats=dict(n_valid=len(windows), n_unique=ex["n_unique"],
+                          n_keep=ex["n_keep"], had_n=ex["had_n"]))
+    if prm.exact_out:
+        out["exact"] = (ex["codes"], ex["counts"],
+                        np.ones(len(ex["codes"]), bool))
+    return out
 
 
 def judge_pass(windows: np.ndarray, prm, out: dict, rng, sample: int,
                device) -> dict:
     """The numbers of one pass: ``stats_wrong`` (0 or 1), ``rows_wrong``
-    and ``unranked_wrong``."""
+    and ``unranked_wrong``, and ``exact_rows_wrong`` where ``out`` holds
+    exact-count rows (``exact``)."""
     k, limit, solid = prm.k, prm.limit, prm.solid_km
     ex = ref.exact_stage(windows, k, prm.param_lc, limit, solid, device)
+    exact = {} if "exact" not in out else dict(exact_rows_wrong=(
+        exact_rows_wrong(out["exact"], ex["codes"], ex["counts"])))
     want = dict(n_valid=len(windows), n_unique=ex["n_unique"],
                 n_keep=ex["n_keep"], had_n=ex["had_n"])
     got = out["stats"]
@@ -153,7 +223,7 @@ def judge_pass(windows: np.ndarray, prm, out: dict, rng, sample: int,
         rows = sum(a != b for a, b in zip(lines, expect))
         return dict(stats_wrong=stats_wrong,
                     rows_wrong=rows + abs(len(lines) - len(expect)),
-                    unranked_wrong=0)
+                    unranked_wrong=0, **exact)
     rows = abs(len(lines) - min(ex["n_keep"], limit))
     kmers, counts = [], []
     for line in lines:
@@ -185,7 +255,7 @@ def judge_pass(windows: np.ndarray, prm, out: dict, rng, sample: int,
                                   k)
         unranked = int(np.flatnonzero(order == 0)[0])
     return dict(stats_wrong=stats_wrong, rows_wrong=rows,
-                unranked_wrong=unranked)
+                unranked_wrong=unranked, **exact)
 
 
 def samplers(run):
@@ -216,6 +286,8 @@ def judge(run, outputs=None, control: str | None = None) -> dict:
     nums = dict(jobs_failed=sum(j.rc != 0 for j in run.jobs),
                 passes_missing=0, stats_wrong=0, rows_wrong=0,
                 unranked_wrong=0)
+    if prm.exact_out:
+        nums["exact_rows_wrong"] = 0
     sampler_of = samplers(run)
     rng = np.random.default_rng(seed + 1)
     made = {}
@@ -234,7 +306,7 @@ def judge(run, outputs=None, control: str | None = None) -> dict:
             out = outputs[j, p]
         else:
             out = program_output(job, p, pass_stats(job.log, job.err,
-                                                    n_passes))
+                                                    n_passes), prm.k)
         got = judge_pass(windows, prm, out, rng, SOLID_SAMPLE, run.device)
         for key, v in got.items():
             nums[key] += v

@@ -4,7 +4,9 @@ A cell is an entry of ``workloads`` in ``BENCHMARK.json``.  Everything the
 harness knows of it is found by name:
 
 - ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives): ``args``,
-  the adaptFinder command line without input, output and seed;
+  the adaptFinder command line without input, output and seed, and
+  ``exact_export`` (optional, default false): whether each job also writes
+  adaptFinder's exact-count export (``-e``);
 - ``traffic/<traffic>.json``: the parameters of ``generate.py``'s FASTA
   file (or, with ``reads_per_file``, its chunk files);
 - ``workloads/<cell>.json``: ``trace_jobs`` (jobs in a traced window) and
@@ -17,8 +19,9 @@ A run writes the FASTA file from the seed into a directory under
 falls in the window), runs one warm-up job, and then the window: one
 client runs jobs back to back, each one adaptFinder invocation as
 Porechop_ABI makes it, ``approx_counter_tpu_torch.__main__.run`` on the
-cell's arguments with its own ``--seed``, its exports in that directory
-(read back and removed after the job) and its log and warnings kept in
+cell's arguments with its own ``--seed``, its exports (and, with
+``exact_export``, its exact-count exports) in that directory (read back
+and removed after the job) and its log and warnings kept in
 memory; between jobs the CUDA caching allocator's cache is emptied.  A job
 counts if it starts inside the window, which ends when the last one
 returns.  With ``trace`` the window runs under ``torch.profiler`` for at
@@ -137,27 +140,49 @@ class Job:
     log: str
     err: str
     exports: list         # each pass's approximate export (bytes or None)
+    exact_exports: list   # each pass's exact-count export, as ``exports``
+                          # (empty without ``exact_export``)
 
 
 class Jobs:
     """Runs adaptFinder jobs on one input (a FASTA file, or a comma-joined
     list of them) and device; ``exports``: whether this process reads and
-    removes the exports (in a multihost cell rank 0 alone writes them)."""
+    removes the exports (in a multihost cell rank 0 alone writes them);
+    ``exact``: whether each job also writes the exact-count exports
+    (``-e``), read and removed as the others are."""
 
     def __init__(self, args: list, fasta: str, workdir: str, device,
-                 exports: bool = True):
+                 exports: bool = True, exact: bool = False):
         from approx_counter_tpu_torch.config.cli import resolve_params
 
         self.args, self.fasta, self.device = list(args), fasta, device
         self.exports = exports
         self.out = os.path.join(workdir, "out")
+        self.exact = os.path.join(workdir, "exact") if exact else None
         self.prm = resolve_params(self.argv(0))
         ends = ("start",) if self.prm.skip_end else ("start", "end")
         self.passes = [(r, e) for r in range(self.prm.nb_of_runs)
                        for e in ends]
 
     def argv(self, seed: int) -> list:
-        return self.args + ["--seed", str(seed), "-o", self.out, self.fasta]
+        exact = ["-e", self.exact] if self.exact else []
+        return (self.args + ["--seed", str(seed), "-o", self.out] + exact
+                + [self.fasta])
+
+    def take(self, prefix: str) -> list:
+        """Each pass's file ``<prefix>_<run>.<end>``, read and removed (None
+        where it is missing); nothing where this process reads no
+        exports."""
+        got = []
+        for r, end in self.passes if self.exports else ():
+            path = f"{prefix}_{r}.{end}"
+            try:
+                with open(path, "rb") as f:
+                    got.append(f.read())
+                os.remove(path)
+            except FileNotFoundError:
+                got.append(None)
+        return got
 
     def run(self, seed: int) -> Job:
         import torch
@@ -183,17 +208,9 @@ class Jobs:
             # until the cache is emptied, so jobs back to back would fill
             # the card
             torch.cuda.empty_cache()
-        exports = []
-        for r, end in self.passes if self.exports else ():
-            path = f"{self.out}_{r}.{end}"
-            try:
-                with open(path, "rb") as f:
-                    exports.append(f.read())
-                os.remove(path)
-            except FileNotFoundError:
-                exports.append(None)
         return Job(seed, start, wall, rc, log.getvalue(), err.getvalue(),
-                   exports)
+                   self.take(self.out),
+                   self.take(self.exact) if self.exact else [])
 
 
 @dataclasses.dataclass
@@ -352,7 +369,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         t_fasta = time.perf_counter()
         fasta, lengths = write_inputs(cell.traffic, workdir, derive(seed, 0))
         t_warm = time.perf_counter()
-        jobs = Jobs(cell.config["args"], fasta, workdir, device)
+        jobs = Jobs(cell.config["args"], fasta, workdir, device,
+                    exact=cell.config.get("exact_export", False))
         warm = jobs.run(derive(seed, 1))
         if device.type == "cuda":
             torch.cuda.synchronize(device)

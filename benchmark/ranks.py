@@ -248,7 +248,8 @@ def run_rank(cell, seed: int, args, device, group):
     dist.broadcast_object_list(names, 0, group=group)
     t_warm = time.monotonic()
     jobs = harness.Jobs(cell.config["args"], names[0], args.workdir, device,
-                        exports=lead)
+                        exports=lead,
+                        exact=cell.config.get("exact_export", False))
     warm = jobs.run(harness.derive(seed, 1))
     if cuda:
         torch.cuda.synchronize(device)

@@ -8,7 +8,8 @@ every rank).
 
 The faults: a pass that returns an earlier pass's answer unchanged (a
 step that returns its state unchanged); half of each batch's windows left
-out; an answer altered where it is produced (one count of each export);
+out; an answer altered where it is produced (the first count of each
+pass's approximate and exact selections, so of each export);
 in a cell on several cards, the exchange between them left out (each
 rank keeps the buckets it would send and reads them as received)."""
 
@@ -49,10 +50,14 @@ def run(cell, control=None, fault=None):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_sound_run_and_control(tiny, name):
-    got = run(tiny(name), control=True)
+    cell = tiny(name)
+    got = run(cell, control=True)
     assert got.result["correct"], got.checks
     assert all(v == 0 for v in got.checks.values())
     assert not check.correct(got.control), got.control
+    if cell.config.get("exact_export"):
+        assert "exact_rows_wrong" in got.checks
+        assert got.control["exact_rows_wrong"] > 0, got.control
 
 
 def stale(monkeypatch):
@@ -82,21 +87,23 @@ def half_batch(monkeypatch):
 
 
 def altered(monkeypatch):
+    """Both drivers reach ``report_and_export_end`` through
+    ``pipeline.count_and_export_end``; its arguments 7 and 8 are the exact
+    and the approximate selections."""
     from approx_counter_tpu_torch import pipeline
-    from approx_counter_tpu_torch.dist import multihost
 
     real = pipeline.report_and_export_end
 
     def plus_one(*args, **kw):
         args = list(args)
-        codes, counts = args[8]
-        counts = counts.copy()
-        counts[0] += 1
-        args[8] = (codes, counts)
+        for i in (7, 8):
+            codes, counts = args[i]
+            counts = counts.copy()
+            counts[:1] += 1
+            args[i] = (codes, counts)
         return real(*args, **kw)
 
     monkeypatch.setattr(pipeline, "report_and_export_end", plus_one)
-    monkeypatch.setattr(multihost, "report_and_export_end", plus_one)
 
 
 def no_exchange(monkeypatch):
@@ -119,3 +126,5 @@ def test_fault_is_not_correct(tiny, monkeypatch, name, fault):
         fault(monkeypatch)
     got = run(cell, fault=fault)
     assert not got.result["correct"], (fault.__name__, got.checks)
+    if fault is altered and cell.config.get("exact_export"):
+        assert got.checks["exact_rows_wrong"] >= 1, got.checks
